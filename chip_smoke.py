@@ -10,8 +10,13 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. hold each CUDA kernel against its plain PyTorch version on the card:
    gather/scatter bit-exact, decode attention within 2e-5 (f32) / 2e-2
-   (bf16), at the shapes of ``tests/test_kernels.py`` and at real 2 MiB
-   chunks, including smollm-135m's KV geometry (T_c = 5461);
+   (bf16) of each output row's largest value (see ``attn_close``), at the
+   shapes of ``tests/test_kernels.py`` and at real 2 MiB chunks, including
+   smollm-135m's KV geometry (T_c = 5461), lengths at the edges of the
+   kernel's tiles and chunks, an arena that is not 16-byte aligned, 50
+   CUDA-graph replays of one call whose splits merge in the kernel, with
+   new lengths before each replay, and replays of a graph captured before
+   a larger call grew the kernel's workspace;
 3. serve smollm-135m at full width through ``repro_torch.launch.serve``;
 4. the lake: write a mid-run engine's dense K/V into its own stitched KV
    cache, compare stitched decode attention (the kernel) with the dense
@@ -22,9 +27,13 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    once more (same tolerances) and time the kernel, its plain version and
    the one-call PyTorch yardstick as device time (calls captured in a CUDA
    graph, replayed between CUDA events), the kernel's wrapper also per call
-   with host work included (``call_ms``), and compute its bound.
+   with host work included (``call_ms``), and compute its bound; time
+   decode attention also at long (16383-token) and ragged (64 sequences of
+   1..16383 tokens) smollm-135m shapes, and an empty kernel in the same
+   graph harness as the practical floor of one launch.
 
-Prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` line, and as
+Prints an ``{"attention_shapes": [...]}`` line and a ``{"kernels": [...]}``
+line, then the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result.
 """
@@ -61,6 +70,7 @@ REAL_CHUNK = (256, 1 << 20, 64)  # 2 MiB bf16 chunks: n_phys, chunk_elems, n_log
 SERVE_ARGS = ["--arch", "smollm-135m", "--requests", "16", "--max-new", "16",
               "--max-batch", "8", "--seed", "0", "--device", "cuda"]
 LAKE_STEPS = 4
+GRAPH_REPLAYS = 50
 
 
 def log(msg: str) -> None:
@@ -90,6 +100,30 @@ def ints(x) -> torch.Tensor:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+#: the largest share of its limit that any attention check has used
+attn_share = 0.0
+
+
+def attn_close(got: torch.Tensor, want: torch.Tensor, what) -> float:
+    """Hold decode attention's (B, H, D) output to its plain version.
+
+    Each element must be within ``tol`` of its (sequence, head) row's
+    largest |value| (so a row of zeros must be zeros), and within
+    ``tol * (1 + |value|)`` as ``torch.testing.assert_close`` counts it.
+    Outputs shrink as 1/sqrt(tokens), so an absolute 2e-2 alone would pass
+    a kernel that drops a tile of a 5461-token chunk. Returns the max abs
+    error and records the worst share of the limit in ``attn_share``."""
+    global attn_share
+    tol = F32_TOL if got.dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol, msg=str(what))
+    err = (got.double() - want.double()).abs()
+    limit = tol * want.double().abs().amax(-1, keepdim=True)
+    assert not bool((err > limit).any()), (what, float((err - limit).max()))
+    if err.numel():
+        attn_share = max(attn_share, float((err / limit).nan_to_num(0.0).max()))
+    return max_err(got, want)
 
 
 def call_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -197,12 +231,12 @@ def _attn_check(rng, B, H, KVH, D, Tc, C, NP, dtype, seq_lens=None, separate_v=F
     else:
         got = stitched_decode_attention(q, ka, va, pt, sl)
         want = ref.stitched_decode_attention_ref(q, ka, va, pt, sl)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    return max_err(got, want)
+    return attn_close(got, want, (B, H, KVH, D, Tc, C, dtype, seq_lens))
 
 
 def check_attention_kernel(rng) -> None:
+    from repro_torch.kernels.stitched_attention import attention_plan
+
     f32, bf16 = torch.float32, torch.bfloat16
     n = 0
     for case in ATTN_CASES:
@@ -220,10 +254,108 @@ def check_attention_kernel(rng) -> None:
     # the engine's smoke geometry: KVH=1, D=32, T_c = 32768 tokens per chunk
     err_smoke = _attn_check(rng, 4, 3, 1, 32, 32768, 2, 8, bf16,
                             seq_lens=[1, 32767, 32769, 65536], chunk_elems=1 << 20)
+    # lengths at the edges of the kernel's tiles and of the chunks, in both geometries
+    err_edges = 0.0
+    for B, H, KVH, D, Tc, C, NP in ((6, 9, 3, 64, 5461, 3, 32), (6, 3, 1, 32, 32768, 2, 8)):
+        tt = attention_plan(B, H, KVH, D, Tc, C, 2).tile_tokens
+        err_edges = max(err_edges, _attn_check(
+            rng, B, H, KVH, D, Tc, C, NP, bf16, seq_lens=[tt - 1, tt, tt + 1, Tc - 1, Tc, Tc + 1],
+            separate_v=True, chunk_elems=1 << 20))
+    # chunk strides that are not a multiple of 16 bytes: plain loads fill the ring
+    _attn_check(rng, 3, 9, 3, 64, 40, 3, 8, f32, seq_lens=[0, 39, 120],
+                chunk_elems=40 * 3 * 64 + 17)
+    _attn_check(rng, 3, 9, 3, 64, 40, 3, 8, bf16, chunk_elems=40 * 3 * 64 + 3)
+    err_graph = check_graph_replays(rng)
+    err_grown = check_graph_after_growth(rng)
     torch.cuda.synchronize()
     log(f"phase 2: decode attention within tolerance on {n} ATTN_CASES runs + separate-KV, "
-        f"short, empty, smollm-full (max err {err_full:.3g}) and engine-smoke "
-        f"(max err {err_smoke:.3g}) geometries")
+        f"short, empty, smollm-full (max err {err_full:.3g}), engine-smoke "
+        f"(max err {err_smoke:.3g}), tile/chunk-edge lengths (max err {err_edges:.3g}), "
+        f"unaligned arenas, {GRAPH_REPLAYS} graph replays (max err {err_graph:.3g}) and "
+        f"replays after the workspace grew (max err {err_grown:.3g}); worst share of the "
+        f"row-scaled limit {attn_share:.4g}")
+
+
+def check_graph_replays(rng) -> float:
+    """One call captured in a CUDA graph, at smollm-135m's full KV geometry
+    where the splits merge through the kernel's tickets; new lengths (0
+    included) go into the captured ``seq_lens`` before each replay, and
+    every replay must equal the plain version. Returns the max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stitched_attention import stitched_decode_attention
+
+    B, H, KVH, D, Tc, C, NP = 8, 9, 3, 64, 5461, 3, 32
+    buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
+    view = buf[:, :Tc * KVH * D].unflatten(1, (Tc, KVH, D))
+    q = rand(rng, (B, H, D), torch.bfloat16)
+    pt = ints(rng.integers(0, NP, size=(B, C)))
+    ptv = ints(rng.integers(0, NP, size=(B, C)))
+    sl = ints(rng.integers(1, C * Tc + 1, size=B))
+
+    def call():
+        return stitched_decode_attention(q, view, view, pt, sl, page_table_v=ptv)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    err = 0.0
+    for i in range(GRAPH_REPLAYS):
+        sl.copy_(ints(rng.integers(0, C * Tc + 1, size=B)))
+        graph.replay()
+        want = ref.stitched_decode_attention_ref(q, view, view, pt, sl, ptv)
+        err = max(err, attn_close(out, want, ("graph replay", i)))
+    return err
+
+
+def check_graph_after_growth(rng) -> float:
+    """A call captured in a CUDA graph keeps the workspace it was captured
+    with: capture a small merging call, make an eager call large enough to
+    grow the workspace, take memory of the old workspace's sizes (a freed
+    old workspace would be handed out here) and fill it, then replay. The
+    replays must equal the plain version and leave that memory alone.
+    Returns the max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stitched_attention as sa
+
+    H, KVH, D, Tc, C, NP = 9, 3, 64, 5461, 3, 32
+    buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
+    view = buf[:, :Tc * KVH * D].unflatten(1, (Tc, KVH, D))
+
+    def inputs(B):
+        q = rand(rng, (B, H, D), torch.bfloat16)
+        return q, ints(rng.integers(0, NP, size=(B, C))), ints([C * Tc] * B)
+
+    q, pt, sl = inputs(2)
+    sa.stitched_decode_attention(q, view, view, pt, sl)  # eager: workspace for this geometry
+    torch.cuda.synchronize()
+    held = sa._workspace[q.device]
+    n_held = len(held)
+    old_tickets, old_partials = held[-1]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sa.stitched_decode_attention(q, view, view, pt, sl)
+    # one more call than the workspace holds: each full sequence takes
+    # splits x H x (D + 2) floats of partials
+    plan = sa.attention_plan(2, H, KVH, D, Tc, C, 2)
+    big_b = old_partials.numel() // (plan.splits * H * (D + 2)) + 1
+    q_big, pt_big, sl_big = inputs(big_b)
+    sa.stitched_decode_attention(q_big, view, view, pt_big, sl_big)
+    assert len(held) == n_held + 1, "the large call did not grow the workspace"
+    fill_t = torch.full_like(old_tickets, 7)
+    fill_p = torch.full_like(old_partials, 7.0)
+    err = 0.0
+    for i in range(5):
+        sl.copy_(ints(rng.integers(C * Tc // 2, C * Tc + 1, size=2)))
+        graph.replay()
+        want = ref.stitched_decode_attention_ref(q, view, view, pt, sl)
+        err = max(err, attn_close(out, want, ("replay after growth", i)))
+    assert bool((fill_t == 7).all()) and bool((fill_p == 7.0).all()), "a replay wrote freed memory"
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +489,7 @@ def timings(inp: dict, counts: dict) -> list:
     def plain():
         return ref.stitched_decode_attention_ref(q, view, view, ptk, sl, ptv)
 
-    attn_err = max_err(kernel(), plain())
-    assert attn_err <= BF16_TOL, attn_err
+    attn_err = attn_close(kernel(), plain(), "main path")
     rows.append(dict(
         name="stitched_decode_attention", route="cuda",
         source="src/repro_torch/csrc/stitched_attention.cu",
@@ -371,24 +502,48 @@ def timings(inp: dict, counts: dict) -> list:
     return rows
 
 
-def long_attention_times(rng) -> str:
-    """Attention at long sequences (smollm-full geometry, 3 chunks each):
-    not the main path's shape, reported beside it."""
+def attention_shapes(rng) -> list:
+    """Decode attention beyond the main path's shape, in smollm-135m's KV
+    geometry (bf16, T_c = 5461, strided views of 2 MiB chunks): ``long``,
+    8 sequences of 16383 tokens over 3 chunks, K and V in one buffer under
+    one table; ``ragged``, 64 sequences of 1..16383 tokens (uniform, from
+    the script's seed), separate K and V buffers under one table that is a
+    permutation of 192 chunks (about 400 MB of KV, far over the 50 MB L2).
+    Each is checked against the plain version once, then timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.stitched_attention import stitched_decode_attention
 
-    B, H, KVH, D, Tc, C, NP = 8, 9, 3, 64, 5461, 3, 32
+    H, KVH, D, Tc, C = 9, 3, 64, 5461, 3
     used = Tc * KVH * D
-    buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
-    view = buf[:, :used].unflatten(1, (Tc, KVH, D))
-    q = rand(rng, (B, H, D), torch.bfloat16)
-    pt = ints(np.stack([rng.permutation(NP)[:C] for _ in range(B)]))
-    sl = ints([C * Tc] * B)
-    nbytes = 2 * B * C * Tc * KVH * D * 2 + 2 * q.numel() * 2
-    ms = time_ms(lambda: stitched_decode_attention(q, view, view, pt, sl))
-    plain = time_ms(lambda: ref.stitched_decode_attention_ref(q, view, view, pt, sl))
-    return (f"long-seq attention (B=8, seq 16383, T_c=5461, bf16): kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    rows = []
+    for name, B, NP in (("long", 8, 32), ("ragged", 64, 192)):
+        k_buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
+        v_buf = k_buf if name == "long" else rand(rng, (NP, 1 << 20), torch.bfloat16)
+        k_view = k_buf[:, :used].unflatten(1, (Tc, KVH, D))
+        v_view = v_buf[:, :used].unflatten(1, (Tc, KVH, D))
+        q = rand(rng, (B, H, D), torch.bfloat16)
+        if name == "long":
+            pt = ints(np.stack([rng.permutation(NP)[:C] for _ in range(B)]))
+            lens = [C * Tc] * B
+        else:
+            pt = ints(rng.permutation(NP).reshape(B, C))
+            lens = rng.integers(1, C * Tc + 1, size=B).tolist()
+        sl = ints(lens)
+
+        def kernel():
+            return stitched_decode_attention(q, k_view, v_view, pt, sl)
+
+        def plain():
+            return ref.stitched_decode_attention_ref(q, k_view, v_view, pt, sl)
+
+        err = attn_close(kernel(), plain(), name)
+        nbytes = (2 * sum(lens) * KVH * D * 2 + 2 * q.numel() * 2 + pt.numel() * 4
+                  + sl.numel() * 4)
+        rows.append(dict(shape=name, B=B, tokens=sum(lens), max_abs_err=err,
+                         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"))
+        del k_buf, v_buf, k_view, v_view
+    return rows
 
 
 def main() -> int:
@@ -421,7 +576,20 @@ def main() -> int:
     assert all(n > 0 for n in counts.values()), counts
 
     rows = timings(inp, counts)
-    log("phase 5: " + long_attention_times(rng))
+    from repro_torch.kernels.stitched_attention import empty_kernel
+
+    attn = rows[-1]
+    log(f"phase 5: main-path attention {attn['ms']:.5f} ms device ({attn['call_ms']:.5f} ms "
+        f"per call) beside an empty kernel's {time_ms(empty_kernel):.5f} ms, the practical "
+        f"floor of one launch in this graph harness")
+    shapes = attention_shapes(rng)
+    log(f"phase 5: worst share of the row-scaled attention limit over all checks "
+        f"{attn_share:.4g}")
+    for r in shapes:
+        log(f"phase 5: {r['shape']} attention (B={r['B']}, {r['tokens']} tokens, bf16): kernel "
+            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+            f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of bound")
+    print(json.dumps({"attention_shapes": shapes}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
