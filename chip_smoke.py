@@ -30,20 +30,45 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    with host work included (``call_ms``), and compute its bound; time
    decode attention also at long (16383-token) and ragged (64 sequences of
    1..16383 tokens) smollm-135m shapes, and an empty kernel in the same
-   graph harness as the practical floor of one launch.
+   graph harness as the practical floor of one launch;
+6. the training path, with launch counts zeroed before it and read after:
+   (a) the smoke config trained 10 steps on the card and on the CPU from
+   the same seed and batches, in float32 (each loss within
+   ``TRAIN_LOSS_RTOL``) and in bf16 with remat on, the full config's
+   working types (within ``TRAIN_LOSS_RTOL_BF16``);
+   (b) smollm-135m at full width (bf16, remat on, batch 8, seq 256) for 20
+   steps through ``repro_torch.launch.train`` and its ``Supervisor``,
+   checkpointing every 10 steps into a temporary directory, with one
+   ``RuntimeError`` injected at step 15: exactly that one restart (and no
+   other event but logged stragglers), the restored step-10 state equal
+   bit for bit to the state saved, all 20 steps in the history, every loss
+   finite and the last below the first; then 2 more steps to warm up, 5
+   timed and 5 profiled by ``measure`` of ``scripts/profile_train.py`` (ms/step,
+   tokens/s, peak memory allocated and reserved, device idle share,
+   kernels per step); (c) the trained f32 first moments through
+   ``OffloadManager`` on an f32 arena on the card (put, spill, fetch, get),
+   bit-exact, every gather and scatter of it equal bit for bit to its plain
+   version at the path's own chunk maps, and the arena empty after
+   ``drop``.
 
-Prints an ``{"attention_shapes": [...]}`` line and a ``{"kernels": [...]}``
-line, then the ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
-so the script exits non-zero and prints no result.
+Prints an ``{"attention_shapes": [...]}`` line, a ``{"training": {...}}``
+line and a ``{"kernels": [...]}`` line (``launches`` is each kernel's count
+on the serving path, phases 3-4, whose shapes phase 5 times;
+``launches_by_path`` has it beside the training path's, phase 6), then the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,6 +96,12 @@ SERVE_ARGS = ["--arch", "smollm-135m", "--requests", "16", "--max-new", "16",
               "--max-batch", "8", "--seed", "0", "--device", "cuda"]
 LAKE_STEPS = 4
 GRAPH_REPLAYS = 50
+TRAIN_ARGS = ["--arch", "smollm-135m", "--steps", "20", "--batch", "8", "--seq", "256",
+              "--ckpt-every", "10", "--seed", "0", "--device", "cuda"]
+TRAIN_FAIL_STEP = 15
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, f32 smoke config (no TF32)
+TRAIN_LOSS_RTOL_BF16 = 2.0**-8  # card vs CPU, bf16 smoke config: one bf16 rounding
+PARITY_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -546,6 +577,246 @@ def attention_shapes(rng) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def train_parity() -> dict:
+    """6a: the smoke config's loss curve on the card against the CPU port's
+    (the CPU tests hold the CPU port against JAX), in float32 and in the
+    full config's working types (bf16, remat on). Returns the largest
+    relative difference of each."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import init_state, make_train_step
+
+    smoke = get_arch("smollm-135m").smoke
+    adamw = opt.AdamWConfig()
+    rels = {}
+    for name, cfg, rtol in (
+            ("float32", smoke, TRAIN_LOSS_RTOL),
+            ("bfloat16", dataclasses.replace(smoke, dtype=torch.bfloat16, remat=True),
+             TRAIN_LOSS_RTOL_BF16)):
+        curves = {}
+        for dev in ("cpu", DEVICE):
+            state = init_state(cfg, adamw, torch.Generator().manual_seed(0), dev)
+            step = make_train_step(cfg, adamw)
+            data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), dev)
+            curves[dev] = []
+            for i in range(PARITY_STEPS):
+                state, m = step(state, data.batch_at(i))
+                curves[dev].append(float(m["loss"]))
+        cpu, card = np.array(curves["cpu"]), np.array(curves[DEVICE])
+        rels[name] = rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        assert rel <= rtol, (name, curves, rel)
+        log(f"phase 6a: {name} smoke-config loss on the card matches the CPU port over "
+            f"{PARITY_STEPS} steps ({card[0]:.6f} -> {card[-1]:.6f}), max relative "
+            f"difference {rel:.3g} (limit {rtol:.3g})")
+    return rels
+
+
+def supervised_training(workdir: Path, card: str):
+    """6b: full-width smollm-135m through the launcher and its supervisor,
+    one fault injected, then timed in steady state; returns (result, final
+    state, timing)."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_train import measure
+
+    args = train.parse_args(TRAIN_ARGS)
+    entry = get_arch(args.arch)
+    cfg = entry.smoke if args.smoke else entry.full
+    watch = args.ckpt_every
+
+    class Checked(CheckpointManager):
+        """Keeps a copy, on the card, of the state saved at step ``watch``
+        and holds every restore to it bit for bit."""
+
+        def __init__(self, directory, keep):
+            super().__init__(directory, keep=keep)
+            self.saved, self.restored, self.saves = None, [], []
+
+        def save_async(self, step, tree):
+            self.saves.append(step)
+            if step == watch:
+                self.saved = [(p, t.clone()) for p, t in flatten_with_path(tree)]
+            super().save_async(step, tree)
+
+        def save(self, step, tree):
+            self.saves.append(step)
+            return super().save(step, tree)
+
+        def restore(self, like, step=None, device=None):
+            out = super().restore(like, step, device)
+            for (path, want), (_, got) in zip(self.saved, flatten_with_path(out), strict=True):
+                assert got.device == want.device and same_bits(got, want), path
+            self.restored.append(step)
+            return out
+
+    pending = {TRAIN_FAIL_STEP}
+
+    def inject(step):
+        if step in pending:
+            pending.discard(step)
+            raise RuntimeError(f"injected failure at step {step}")
+
+    ckpt = Checked(workdir, keep=2)
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    result, state = train.run(args, fail_injector=inject, ckpt=ckpt)
+    # exactly one restart, the injected one: any other would be a fault the
+    # supervisor recovered from silently. Stragglers are only logged (the
+    # "log" policy): a step 3x the median on a shared host is not a fault.
+    events = [e for e in result["events"] if e["kind"] != "straggler"]
+    stragglers = len(result["events"]) - len(events)
+    assert [e["kind"] for e in events] == ["restart"], result["events"]
+    assert events[0]["step"] == TRAIN_FAIL_STEP and "injected" in events[0]["error"], events
+    assert ckpt.restored == [watch], ckpt.restored
+    assert len(ckpt.saves) <= 3, ckpt.saves
+    steps = [h["step"] for h in result["history"]]
+    assert steps == list(range(args.steps)), steps
+    losses = [h["loss"] for h in result["history"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert result["last_loss"] < result["first_loss"], result
+    assert int(state.step) == args.steps and state.params["embed"].dtype == cfg.dtype
+
+    log(f"phase 6b: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{str(cfg.dtype).split('.')[-1]}, remat {cfg.remat}, batch {args.batch}, seq "
+        f"{args.seq}): {result['steps']} supervised steps, events {[e['kind'] for e in events]} "
+        f"at step {events[0]['step']} and {stragglers} logged stragglers, restored step {watch} bit-exact, saves at steps "
+        f"{ckpt.saves}, loss {result['first_loss']:.4f} -> {result['last_loss']:.4f} "
+        f"(min {result['min_loss']:.4f}), wall {result['wall_s']} s incl. checkpoints, "
+        f"{result['tokens_per_s']} tokens/s over the run, peak allocated "
+        f"{result['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
+        f"{result['peak_reserved_bytes'] / 2**30:.3f} GiB (with this check's copy of the "
+        f"step-{watch} state); disk free before {free_gb:.1f} GB")
+
+    # steady state, measured as scripts/profile_train.py measures it
+    ckpt.saved = None
+    step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.batch, seed=args.seed), DEVICE)
+    torch.cuda.empty_cache()
+    state, timing = measure(step_fn, state, data.batch_at, args.steps)
+    assert math.isfinite(timing["last_loss"]), timing
+    prof = timing["profiled"]
+    log(f"phase 6b: steady state on {card}, over {timing['steps']} steps: "
+        f"{timing['ms_per_step']:.3f} ms/step, {timing['tokens_per_s']:.0f} tokens/s, peak "
+        f"allocated {timing['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
+        f"{timing['peak_reserved_bytes'] / 2**30:.3f} GiB; under the profiler "
+        f"{prof['ms_per_step']:.3f} ms/step, device busy {prof['device_busy_ms_per_step']:.3f} "
+        f"ms/step, idle share {prof['device_idle_share']:.4f}, "
+        f"{prof['kernels_per_step']:.0f} kernels/step")
+    return result, state, timing
+
+
+def offload_moments(state) -> dict:
+    """6c: the trained f32 first moments through host offload on an f32
+    arena on the card (put, spill, fetch, get), bit-exact, arena empty at
+    the end. Every kernel launch of the path is held bit for bit to its
+    plain version on the same inputs, at the path's own chunk maps: after
+    each store (put, fetch) the whole arena against ``stitch_scatter_ref``
+    applied to a copy of the arena from before it, and each load (spill,
+    get) against ``stitch_gather_ref`` of the arena it read."""
+    from repro_torch.alloc import CHUNK_SIZE
+    from repro_torch.core.arena import Arena, ArenaConfig
+    from repro_torch.core.offload import OffloadManager
+    from repro_torch.kernels import ref
+    from repro_torch.tree import flatten_with_path
+
+    mu = dict(flatten_with_path(state.opt.mu))
+    assert all(t.dtype == torch.float32 for t in mu.values())
+    chunks = sum(-(-t.numel() * 4 // CHUNK_SIZE) for t in mu.values())
+    arena = Arena(ArenaConfig(n_chunks=chunks + 8, dtype=torch.float32, device=DEVICE))
+    ce = arena.config.chunk_elems
+    om = OffloadManager(arena)
+
+    def chunk_map(name):
+        return arena.chunk_map(om._device[name].alloc)[:-(-mu[name].numel() // ce)]
+
+    def stored(name, before):
+        """The arena after storing ``mu[name]`` equals the plain scatter."""
+        cmap = chunk_map(name)
+        values = torch.zeros((cmap.numel(), ce), dtype=torch.float32, device=DEVICE)
+        values.view(-1)[:mu[name].numel()] = mu[name].reshape(-1)
+        assert same_bits(arena.buf, ref.stitch_scatter_ref(before, cmap, values)), name
+
+    def gathered(name):
+        """The plain gather of ``mu[name]`` from the arena as it stands."""
+        t = mu[name]
+        return ref.stitch_gather_ref(arena.buf, chunk_map(name)).reshape(-1)[:t.numel()] \
+            .reshape(t.shape)
+
+    maps = []
+    for name, t in mu.items():
+        before = arena.buf.clone()
+        om.put(name, t)
+        stored(name, before)
+        maps.append(chunk_map(name).numel())
+    for name in mu:
+        want = gathered(name)
+        om.spill(name)
+        assert same_bits(om._host[name], want.cpu()), name
+    assert arena.active_bytes == 0 and not any(om.is_resident(n) for n in mu)
+    for name in mu:
+        before = arena.buf.clone()
+        om.fetch(name)
+        stored(name, before)
+    del before
+    for name, t in mu.items():
+        want = gathered(name)
+        back = om.get(name)
+        assert back.device == t.device and same_bits(back, want) and same_bits(back, t), name
+    nbytes = sum(t.numel() * 4 for t in mu.values())
+    for name in mu:
+        om.drop(name)
+    assert arena.active_bytes == 0 and om.names() == set()
+    torch.cuda.synchronize()
+    log(f"phase 6c: {len(mu)} f32 moment leaves ({nbytes / 1e6:.1f} MB, chunk maps of "
+        f"{min(maps)}-{max(maps)} chunks) put, spilled, fetched and read back bit-exact "
+        f"through a {chunks + 8}-chunk arena, every store and load equal bit for bit to "
+        f"the plain scatter and gather; active bytes 0 after drop")
+    return dict(leaves=len(mu), bytes=nbytes, chunks_per_leaf=[min(maps), max(maps)])
+
+
+def train_path(card: str) -> dict:
+    """Phase 6 with the launch counts zeroed before it and read after."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()  # peaks below count from the training path's own blocks
+    ops.reset_launch_counts()
+    rels = train_parity()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir, prefix="ckpt-") as workdir:
+        result, state, timing = supervised_training(Path(workdir), card)
+    offload = offload_moments(state)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"phase 6: kernel launches on the training path {counts}")
+    assert counts["stitch_gather"] > 0 and counts["stitch_scatter"] > 0, counts
+    return dict(counts=counts, parity_rel=rels, timing=timing, offload=offload,
+                steps=result["steps"], first_loss=result["first_loss"],
+                last_loss=result["last_loss"], run_tokens_per_s=result["tokens_per_s"],
+                run_peak_allocated_bytes=result["peak_allocated_bytes"],
+                run_peak_reserved_bytes=result["peak_reserved_bytes"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -589,7 +860,13 @@ def main() -> int:
         log(f"phase 5: {r['shape']} attention (B={r['B']}, {r['tokens']} tokens, bf16): kernel "
             f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
             f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of bound")
+    del inp  # the serving phases' arenas: phase 6 measures the training path alone
+    trained = train_path(card)
+    for row in rows:  # launches stays the serving path's count, at the timed shapes
+        row["launches_by_path"] = {"serve": row["launches"],
+                                   "train": trained["counts"][row["name"]]}
     print(json.dumps({"attention_shapes": shapes}))
+    print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,5 +12,5 @@ FULL = TransformerConfig(
 SMOKE = TransformerConfig(
     name="smollm-smoke", n_layers=3, d_model=96, n_heads=3, n_kv=1,
     d_ff=192, vocab=512, norm="rmsnorm", act="silu", gated=True,
-    dtype=torch.float32,
+    dtype=torch.float32, remat=False,
 )

@@ -1,2 +1,3 @@
 """Workload layer of the port: traces (``trace``), the stitched arena
-(``arena``) and the stitched KV cache (``kvcache``)."""
+(``arena``), the stitched KV cache (``kvcache``) and host offload
+(``offload``)."""

@@ -1,7 +1,8 @@
 """Uniform model API: each family exposes the same entry points.
 
-Counterpart of ``repro.models.api``; the launcher and the serving engine go
-through ``family_of(cfg)``. Only the dense family is ported so far.
+Counterpart of ``repro.models.api``; the launchers, the train step and the
+serving engine go through ``family_of(cfg)``. Only the dense family is
+ported so far, and ``param_axes`` waits for the parallelism port.
 """
 
 from __future__ import annotations

@@ -88,6 +88,150 @@ def _expand_kv(k, n_heads: int):
     return k.repeat_interleave(n_heads // n_kv, dim=2)
 
 
+MAX_Q_BLOCKS = 16
+
+
+def _block_layout(sq: int, skv: int, kv_block: int):
+    """(q blocks, q block size, kv block size, kv blocks): the reference's
+    static tiling of the score matrix."""
+    n_q_blocks = max(1, min(MAX_Q_BLOCKS, sq // max(kv_block, 1)))
+    while sq % n_q_blocks:
+        n_q_blocks -= 1
+    q_block = sq // n_q_blocks
+    kvb = min(kv_block, skv)
+    while skv % kvb:
+        kvb -= 1
+    return n_q_blocks, q_block, kvb, skv // kvb
+
+
+def _kv_range(qi, q_block, kvb, n_kv_blocks, causal, window, prefix_len, q_offset) -> range:
+    """The kv blocks q block ``qi`` can reach. A prefix-LM mask lets prefix
+    rows attend forward, so a prefix turns block skipping off."""
+    has_prefix = prefix_len is not None
+    q_end = q_offset + (qi + 1) * q_block
+    if causal and not has_prefix:
+        hi = min(n_kv_blocks, -(-q_end // kvb))
+    else:
+        hi = n_kv_blocks
+    if window is not None and not has_prefix:
+        lo = max(0, (q_offset + qi * q_block - window) // kvb)
+    else:
+        lo = 0
+    return range(lo, hi)
+
+
+def _mask_bias(q_pos, kv_pos, causal, window, prefix_len):
+    """Additive mask (0 visible, NEG_INF masked): (1,1,q,k), or (B,1,q,k)
+    for a per-sequence prefix."""
+    vis = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        vis = kv_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        vis = vis & (kv_pos[None, :] > (q_pos[:, None] - window))
+    if prefix_len is not None:
+        if isinstance(prefix_len, torch.Tensor) and prefix_len.dim():  # (B,) per sequence
+            vis = vis[None] | (kv_pos[None, None, :] < prefix_len[:, None, None])
+            return torch.zeros(vis.shape, device=vis.device).masked_fill_(~vis, NEG_INF)[:, None]
+        vis = vis | (kv_pos[None, :] < prefix_len)
+    return torch.zeros(vis.shape, device=vis.device).masked_fill_(~vis, NEG_INF)[None, None]
+
+
+def _flash_fwd_blocks(q, kf, vf, prefix_len, causal, window, q_offset, kv_block, scale):
+    """Forward pass over (q block, kv block) tiles with an online softmax.
+    Returns o (q's dtype) and the per-row statistics m, l (B, H, Sq)."""
+    b, sq, h, d = q.shape
+    skv = kf.shape[1]
+    n_q, q_block, kvb, n_kv = _block_layout(sq, skv, kv_block)
+    outs, ms, ls = [], [], []
+    for qi in range(n_q):
+        qs = q[:, qi * q_block:(qi + 1) * q_block] * scale
+        q_pos = q_offset + qi * q_block + torch.arange(q_block, device=q.device)
+        m = torch.full((b, h, q_block), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, q_block), device=q.device)
+        acc = torch.zeros((b, q_block, h, d), device=q.device)
+        for j in _kv_range(qi, q_block, kvb, n_kv, causal, window, prefix_len, q_offset):
+            kj, vj = kf[:, j * kvb:(j + 1) * kvb], vf[:, j * kvb:(j + 1) * kvb]
+            kv_pos = j * kvb + torch.arange(kvb, device=q.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kj.float())
+            s = s + _mask_bias(q_pos, kv_pos, causal, window, prefix_len)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            pv = torch.einsum("bhqk,bkhd->bqhd", p.to(kj.dtype).float(), vj.float())
+            acc = alpha.transpose(1, 2)[..., None] * acc + pv
+            m = m_new
+        lsafe = torch.where(l > 0, l, torch.ones_like(l))
+        outs.append((acc / lsafe.transpose(1, 2)[..., None]).to(q.dtype))
+        ms.append(m)
+        ls.append(lsafe)
+    return torch.cat(outs, 1), torch.cat(ms, -1), torch.cat(ls, -1)
+
+
+def _flash_bwd_blocks(q, kf, vf, prefix_len, o, m, l, do, causal, window, q_offset,
+                      kv_block, scale):
+    """FlashAttention-2 style backward: p is recomputed tile by tile from
+    (q, k, m, l), so no (Sq, Skv) residual is kept. Returns f32 dq and the
+    expanded-head dk, dv."""
+    b, sq, h, d = q.shape
+    skv = kf.shape[1]
+    n_q, q_block, kvb, n_kv = _block_layout(sq, skv, kv_block)
+    dof = do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())  # rowsum(do * o)
+    dq = torch.zeros((b, sq, h, d), device=q.device)
+    dk = torch.zeros((b, skv, h, d), device=q.device)
+    dv = torch.zeros((b, skv, h, d), device=q.device)
+    for qi in range(n_q):
+        sl = slice(qi * q_block, (qi + 1) * q_block)
+        qs = (q[:, sl] * scale).float()
+        doq, mi, li, di = dof[:, sl], m[..., sl], l[..., sl], delta[..., sl]
+        q_pos = q_offset + qi * q_block + torch.arange(q_block, device=q.device)
+        dqi = torch.zeros((b, q_block, h, d), device=q.device)
+        for j in _kv_range(qi, q_block, kvb, n_kv, causal, window, prefix_len, q_offset):
+            span = slice(j * kvb, (j + 1) * kvb)
+            kj, vj = kf[:, span].float(), vf[:, span].float()
+            kv_pos = j * kvb + torch.arange(kvb, device=q.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", qs, kj)
+            s = s + _mask_bias(q_pos, kv_pos, causal, window, prefix_len)
+            p = torch.exp(s - mi[..., None]) / li[..., None]
+            dv[:, span] += torch.einsum("bhqk,bqhd->bkhd", p, doq)
+            dp = torch.einsum("bqhd,bkhd->bhqk", doq, vj)
+            ds = p * (dp - di[..., None])
+            dqi = dqi + torch.einsum("bhqk,bkhd->bqhd", ds, kj)
+            dk[:, span] += torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+        dq[:, sl] = dqi * scale
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Blocked attention whose backward recomputes scores: the residuals are
+    q, the expanded k and v, o and the per-row (m, l) only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, causal, window, q_offset, kv_block, scale):
+        h = q.shape[2]
+        kf, vf = _expand_kv(k, h), _expand_kv(v, h)
+        o, m, l = _flash_fwd_blocks(q, kf, vf, prefix_len, causal, window, q_offset,
+                                    kv_block, scale)
+        ctx.save_for_backward(q, kf, vf, o, m, l)
+        ctx.opts = (prefix_len, causal, window, q_offset, kv_block, scale, k.shape[2])
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, kf, vf, o, m, l = ctx.saved_tensors
+        prefix_len, causal, window, q_offset, kv_block, scale, n_kv = ctx.opts
+        dq, dkf, dvf = _flash_bwd_blocks(q, kf, vf, prefix_len, o, m, l, do, causal, window,
+                                         q_offset, kv_block, scale)
+        b, skv, h, d = dkf.shape
+        if n_kv != h:  # fold the expanded heads' cotangents back onto the kv heads
+            dkf = dkf.reshape(b, skv, n_kv, h // n_kv, d).sum(3)
+            dvf = dvf.reshape(b, skv, n_kv, h // n_kv, d).sum(3)
+        # prefix_len and the static options get no cotangent
+        return (dq.to(q.dtype), dkf.to(q.dtype), dvf.to(q.dtype),
+                None, None, None, None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, KVH, D)
@@ -97,34 +241,20 @@ def flash_attention(
     window: Optional[int] = None,  # sliding-window size (SWA)
     prefix_len=None,  # int or (B,) tensor: bidirectional prefix (prefix-LM)
     q_offset: int = 0,
+    kv_block: int = 512,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Masked softmax attention, forward only: the function the JAX package's
-    blocked flash attention computes, written plainly (one score matrix per
-    call; prompts on the serving path are short). The backward pass comes
-    with the training path."""
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
+    """Blocked flash attention with a recomputing backward, in plain PyTorch:
+    the JAX package's ``flash_attention`` and its custom VJP, tile for tile.
+    Tiles only the causal / sliding-window reach of each q block; GQA
+    expands K/V inside and folds the cotangents back onto the kv heads. A
+    tensor ``prefix_len`` gets no gradient."""
+    d = q.shape[-1]
     scale = (d**-0.5) if scale is None else scale
-    kf, vf = _expand_kv(k, h), _expand_kv(v, h)
-    s = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), kf.float())
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    kv_pos = torch.arange(skv, device=q.device)
-    vis = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        vis = kv_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        vis = vis & (kv_pos[None, :] > (q_pos[:, None] - window))
-    if prefix_len is not None:
-        pl = torch.as_tensor(prefix_len, device=q.device)
-        if pl.dim():  # (B,) per-sequence prefix
-            vis = (vis[None] | (kv_pos[None, None, :] < pl[:, None, None]))[:, None]
-        else:
-            vis = vis | (kv_pos[None, :] < pl)
-    s = s.masked_fill(~vis, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf.float())
-    return o.to(q.dtype)
+    if isinstance(prefix_len, torch.Tensor):
+        prefix_len = prefix_len.to(q.device)
+    return _FlashAttention.apply(q, k, v, prefix_len, causal, window, q_offset, kv_block,
+                                 scale)
 
 
 def decode_attention_dense(

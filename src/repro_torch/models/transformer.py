@@ -1,6 +1,6 @@
 """Dense decoder-only transformer LM (GQA + RoPE, optional SWA / prefix-LM).
 
-Counterpart of ``repro.models.transformer`` for the serving slice. Params
+Counterpart of ``repro.models.transformer``. Params
 are a nested dict of tensors in the JAX package's tree layout, per-layer
 weights stacked on a leading ``(n_layers, ...)`` axis, so a JAX param tree
 converts leaf for leaf (``params_from_jax_numpy``). Layers run in a Python
@@ -11,10 +11,11 @@ functionally.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
@@ -38,6 +39,7 @@ class TransformerConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False  # gemma-style sqrt(d) embedding multiplier
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True  # recompute each layer's activations in the backward pass
 
     @property
     def dh(self) -> int:
@@ -129,9 +131,15 @@ def params_from_jax_numpy(cfg: TransformerConfig, tree: Dict,
     return conv(tree)
 
 
-def _layer(params: Dict, i: int) -> Dict:
-    """Layer ``i``'s slice of the stacked per-layer weights."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
+def _layers(params: Dict, n: int) -> List[Dict]:
+    """Each layer's slice of the stacked per-layer weights, taken by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would build a full-size gradient of the
+    stacked leaf for every layer (the reference's scan writes each layer's
+    slice in place)."""
+    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in params.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -162,10 +170,20 @@ def _block(cfg, lp, x, positions, prefix_len):
 def forward(cfg: TransformerConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
             prefix_len=None, collect_kv: bool = False):
     """x (B, S, d) embedded input -> final-normed hidden (B, S, d), and the
-    per-layer (k, v) stacked to (L, B, S, KVH, Dh) when ``collect_kv``."""
+    per-layer (k, v) stacked to (L, B, S, KVH, Dh) when ``collect_kv``.
+
+    With ``cfg.remat`` and gradients enabled, each layer runs under
+    ``torch.utils.checkpoint``: only its input is kept for the backward
+    pass, which recomputes the rest (the reference's ``jax.checkpoint``).
+    Serving runs under ``torch.no_grad`` and never takes that path."""
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _block(cfg, _layer(params["layers"], i), x, positions, prefix_len)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        if remat:
+            x, (k, v) = checkpoint(_block, cfg, lp, x, positions, prefix_len,
+                                   use_reentrant=False)
+        else:
+            x, (k, v) = _block(cfg, lp, x, positions, prefix_len)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -216,9 +234,11 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     }
 
 
+@torch.no_grad()
 def prefill(cfg, params, batch, cache):
     """Run the prompt through the model, fill the cache (in place), return
-    the last position's logits (B, 1, V) and the cache."""
+    the last position's logits (B, 1, V) and the cache. No gradients: the
+    serving path never takes the remat wrapper."""
     tokens = batch["tokens"]  # (B, S_prompt)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -230,6 +250,7 @@ def prefill(cfg, params, batch, cache):
     return logits_from_hidden(cfg, params, h[:, -1:]), cache
 
 
+@torch.no_grad()
 def decode_step(cfg, params, cache, tokens):
     """One token per sequence through the dense KV cache (updated in place).
     tokens: (B,) -> logits (B, V), cache."""
@@ -238,8 +259,7 @@ def decode_step(cfg, params, cache, tokens):
     x = embed_tokens(cfg, params, tokens[:, None])  # (B, 1, d)
     positions = lengths.long()[:, None]
     rows = torch.arange(b, device=tokens.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         q, k, v = _qkv(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions)
         kc, vc = cache["k"][i], cache["v"][i]
         # write the new token into the cache at each sequence's length

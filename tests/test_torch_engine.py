@@ -20,10 +20,13 @@ from repro.models import transformer as JT
 from repro.serve.engine import EngineConfig as JEngineConfig, ServeEngine as JServeEngine
 from repro.serve.loadgen import LoadGenConfig, generate
 from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import EngineConfig, ServeEngine
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import init_state
 
 DATA = Path(__file__).parent / "data"
 
@@ -178,3 +181,9 @@ def test_entry_points_default_to_cuda():
     cfg = get_arch("smollm-135m").smoke
     with pytest.raises(RuntimeError, match="CUDA"):
         T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(cfg, AdamWConfig(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])

@@ -31,5 +31,9 @@ def test_port_imports_neither_jax_nor_repro():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     for name in ("repro_torch.kernels.stitch_copy", "repro_torch.kernels.stitched_attention",
-                 "repro_torch.serve.engine", "repro_torch.launch.serve"):
+                 "repro_torch.serve.engine", "repro_torch.launch.serve",
+                 "repro_torch.train.step", "repro_torch.train.optimizer",
+                 "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.ft.supervisor", "repro_torch.launch.train",
+                 "repro_torch.core.offload"):
         assert name in result["imported"]
