@@ -49,13 +49,30 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    ``OffloadManager`` on an f32 arena on the card (put, spill, fetch, get),
    bit-exact, every gather and scatter of it equal bit for bit to its plain
    version at the path's own chunk maps, and the arena empty after
-   ``drop``.
+   ``drop``;
+7. supervised serving under faults, with launch counts zeroed before it
+   and read after: (a) ``serve.killrecover``'s scenario for gmlake,
+   caching, ellm and hybrid on the card, each held to the CPU port's run
+   of it in this process (the reference: same restarts, every one an
+   ``AllocatorOOM``, budget resets, memory report and allocation trace;
+   gmlake's trace also equal to ``tests/data/serve_engine_killrecover
+   .trace.json``), with tokens equal to the fault-free twin's on the card,
+   then the chaos campaign's engine leg per backend (liveness, safety and
+   quality); (b) the same scenario with smollm-135m at full width and the
+   device model scaled to 30 layers (``KR_FULL``), held to the CPU port's
+   run the same way, tokens equal bit for bit to the full-width fault-free
+   twin's on the card; (c) a second full-width faulted engine stopped two
+   steps past its restart: every live sequence's chunks over all layers
+   and K/V pairwise disjoint and inside the arena, and a seeded bf16
+   tensor scattered into them and gathered back bit-exact, each kernel
+   call equal bit for bit to its plain version.
 
 Prints an ``{"attention_shapes": [...]}`` line, a ``{"training": {...}}``
-line and a ``{"kernels": [...]}`` line (``launches`` is each kernel's count
+line, a ``{"kernels": [...]}`` line (``launches`` is each kernel's count
 on the serving path, phases 3-4, whose shapes phase 5 times;
-``launches_by_path`` has it beside the training path's, phase 6), then the
-``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+``launches_by_path`` has it beside the training path's, phase 6, and the
+kill/recover path's, phase 7) and a ``{"kill_recover": {...}}`` line, then
+the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
 """
@@ -817,6 +834,283 @@ def train_path(card: str) -> dict:
                 run_peak_reserved_bytes=result["peak_reserved_bytes"])
 
 
+# ---------------------------------------------------------------------------
+# phase 7: supervised serving under faults (kill/recover)
+# ---------------------------------------------------------------------------
+
+KR_BACKENDS = ("gmlake", "caching", "ellm", "hybrid")
+KR_GOLDEN = ROOT / "tests" / "data" / "serve_engine_killrecover.trace.json"
+#: 7b's device model: the reference scenario (smoke model, 3 layers, a
+#: 56-chunk device, 16 MB shrink, fault at alloc call 25) scaled to
+#: smollm-135m's 30 layers, with its workload and KV accounting geometry
+#: (32 tokens a 2 MiB chunk) kept. Each running sequence holds 30 x 2
+#: allocations of 1-2 chunks, so 3 running sequences hold at most 360
+#: chunks: n_chunks is the reference's 56 x 10 (a 1.1 GiB arena), shrink_mb
+#: its 16 x 10. The admission ramp issues 180 device creates (the
+#: reference's 18), and call 250 is the 70th growth create (the
+#: reference's 7th): the fault lands at decode step 14, after the step-12
+#: checkpoint, as in the reference. Confirmed with the CPU port, whose
+#: accounting is host-side and the same at any model width.
+KR_FULL = dict(n_chunks=560, shrink_mb=160, fault_call=250)
+#: 7c stops its engine here, two steps past the restart at step 14, with
+#: every admitted sequence still running (they finish at step 23 and later)
+KR_STOP_STEPS = 16
+
+
+def trace_events(trace) -> list:
+    return [(e.op, e.tid, e.size, e.label, e.tenant, e.slo) for e in trace.events]
+
+
+def restarts(events) -> list:
+    return [(e["step"], e["error"]) for e in events if e["kind"] == "restart"]
+
+
+def restore_targets(eng) -> list:
+    """The steps ``load_state`` rebuilt from, read off the engine's trace."""
+    prefix = "engine.restore@"
+    return [int(e.label[len(prefix):]) for e in eng.recorder.trace.events
+            if e.op == "mark" and e.label.startswith(prefix)]
+
+
+def tokens(eng) -> dict:
+    return {r.req_id: list(r.generated) for r in eng.finished}
+
+
+def sync_s(t0: float) -> float:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return round(time.perf_counter() - t0, 3)
+
+
+def same_faulted_run(card: dict, cpu: dict, what: str) -> None:
+    """A faulted run on the card against the CPU port's run of the same
+    configuration, the reference it is held to: drained with every request
+    finished, the same restarts (step and error, every one an
+    ``AllocatorOOM``) and budget resets, the same memory report and the
+    same allocation trace. Stragglers depend on timing and are left out."""
+    for run in (card, cpu):
+        assert run["drained"] and run["finished"] == run["requests"], (what, run["finished"])
+    got = restarts(card["events"])
+    assert got and got == restarts(cpu["events"]), (what, got, restarts(cpu["events"]))
+    assert all(err.startswith("AllocatorOOM(") for _, err in got), (what, got)
+    # the life after the last restore recovered every fault its ladder met;
+    # read here, since the chaos engine leg looks under a key the report
+    # does not have (ROADMAP queue C)
+    counts = card["memory_report"]["recovery_events"]["counts"]
+    assert counts.get("recovered", 0) >= 1 and not counts.get("unrecovered", 0), (what, counts)
+    resets = [[e for e in run["events"] if e["kind"] == "budget_reset"] for run in (card, cpu)]
+    assert resets[0] == resets[1], (what, resets)
+    assert card["memory_report"] == cpu["memory_report"], (what, card["memory_report"],
+                                                           cpu["memory_report"])
+    assert trace_events(card["engine"].recorder.trace) == \
+        trace_events(cpu["engine"].recorder.trace), what
+
+
+def kill_recover_reference(workdir: Path) -> dict:
+    """7a: the reference scenario for every backend with a calibrated fault
+    point, on the card, held to the CPU port's run (and, for gmlake, to the
+    checked-in recording); tokens equal to the fault-free twin's on the
+    card; then the chaos campaign's engine leg for each backend."""
+    from repro_torch.chaos.campaign import run_engine_leg
+    from repro_torch.core.trace import load_trace
+    from repro_torch.serve.killrecover import KillRecoverConfig, build_engine, run_scenario
+
+    golden = trace_events(load_trace(KR_GOLDEN))
+    rows = {}
+    for b in KR_BACKENDS:
+        cfg = KillRecoverConfig.for_backend(b)
+        t0 = time.perf_counter()
+        card = run_scenario(cfg, str(workdir / f"{b}-card"), device=DEVICE)
+        card_s = sync_s(t0)
+        t0 = time.perf_counter()
+        cpu = run_scenario(cfg, str(workdir / f"{b}-cpu-reference"), device="cpu")
+        cpu_s = round(time.perf_counter() - t0, 3)
+        same_faulted_run(card, cpu, b)
+        if b == "gmlake":
+            assert trace_events(card["engine"].recorder.trace) == golden, "golden trace"
+        t0 = time.perf_counter()
+        twin = build_engine(cfg, None, device=DEVICE)
+        twin.run_to_completion()
+        twin_s = sync_s(t0)
+        assert tokens(card["engine"]) == tokens(twin), b
+        rep = card["memory_report"]
+        rows[b] = dict(finished=card["finished"], restarts=restarts(card["events"]),
+                       restore_targets=restore_targets(card["engine"]),
+                       peak_reserved=rep["peak_reserved"],
+                       injected_faults=rep["injected_faults"],
+                       trace_events=rep["n_trace_events"], card_s=card_s,
+                       twin_card_s=twin_s, cpu_reference_s=cpu_s)
+        log(f"phase 7a: {b}: {card['finished']}/{card['requests']} finished on the card, "
+            f"restarts at steps {[st for st, _ in rows[b]['restarts']]} (AllocatorOOM), "
+            f"restored from steps {rows[b]['restore_targets']}, peak reserved "
+            f"{rep['peak_reserved']}, {rep['n_trace_events']} trace events: restarts, memory "
+            f"report and trace equal to the CPU port's run"
+            f"{' and to the checked-in recording' if b == 'gmlake' else ''}; tokens equal to "
+            f"the fault-free twin's; card {card_s} s, twin {twin_s} s, CPU reference {cpu_s} s")
+    for b in KR_BACKENDS:
+        v = run_engine_leg(b)
+        assert v.liveness and v.safety and v.quality, v.to_payload()
+        rows[b]["engine_leg"] = v.detail
+    log(f"phase 7a: chaos engine legs on the card: liveness, safety and quality hold for "
+        f"{', '.join(KR_BACKENDS)}")
+    return rows
+
+
+def full_width_engine(kr, params, schedule, device):
+    """``serve.killrecover.build_engine``'s engine with smollm-135m at full
+    width (the package builds the smoke model only, as the reference does)."""
+    from repro_torch.alloc import CHUNK_SIZE, FaultInjector, FaultSchedule, VMMDevice, registry
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+
+    cfg = get_arch(kr.arch).full
+    injector = FaultInjector(VMMDevice(kr.n_chunks * CHUNK_SIZE),
+                             schedule if schedule is not None else FaultSchedule())
+    eng = ServeEngine(cfg, params, EngineConfig(
+        max_batch=kr.max_batch, max_len=128, n_chunks=kr.n_chunks,
+        allocator=registry.create(kr.backend, injector), kv_n_kv=kr.kv_n_kv,
+        kv_head_dim=kr.kv_head_dim, device=device))
+    rng = np.random.default_rng(kr.seed)
+    for _ in range(kr.requests):
+        plen = int(rng.integers(8, 24))
+        eng.submit(rng.integers(0, cfg.vocab, size=plen), max_new=kr.max_new)
+    return eng
+
+
+def full_width_params(kr, device):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+
+    return init_params(get_arch(kr.arch).full, torch.Generator().manual_seed(kr.seed), device)
+
+
+def supervised(eng, workdir: Path, kr, max_steps: int) -> dict:
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.serve.killrecover import summarize, supervisor_config
+
+    sup = eng.run_supervised(CheckpointManager(workdir, keep=3), max_steps=max_steps,
+                             config=supervisor_config(kr))
+    return summarize(eng, sup, kr.requests)
+
+
+def kill_recover_full(workdir: Path, card: str) -> dict:
+    """7b: smollm-135m at full width under the scaled fault schedule on the
+    card, held to the CPU port's run of the same configuration; tokens
+    equal bit for bit to the fault-free twin's on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.killrecover import KillRecoverConfig, build_schedule
+
+    kr = KillRecoverConfig.for_backend("gmlake", **KR_FULL)
+    cfg = get_arch(kr.arch).full
+    params = full_width_params(kr, DEVICE)
+    t0 = time.perf_counter()
+    out = supervised(full_width_engine(kr, params, build_schedule(kr), DEVICE),
+                     workdir / "card", kr, kr.max_steps)
+    card_s = sync_s(t0)
+    t0 = time.perf_counter()
+    twin = full_width_engine(kr, params, None, DEVICE)
+    twin.run_to_completion()
+    twin_s = sync_s(t0)
+    del params
+    t0 = time.perf_counter()
+    cpu = supervised(full_width_engine(kr, full_width_params(kr, "cpu"), build_schedule(kr),
+                                       "cpu"), workdir / "cpu-reference", kr, kr.max_steps)
+    cpu_s = round(time.perf_counter() - t0, 3)
+    same_faulted_run(out, cpu, "full width")
+    eng = out["engine"]
+    targets = restore_targets(eng)
+    # the fault lands after the first checkpoint: no restore goes back to step 0
+    assert targets and min(targets) >= kr.checkpoint_every, targets
+    assert tokens(eng) == tokens(twin), "full width: faulted run != fault-free twin"
+    assert all(len(t) == kr.max_new for t in tokens(eng).values())
+    rep = out["memory_report"]
+    log(f"phase 7b: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{str(cfg.dtype).split('.')[-1]}) on {card}: {out['finished']}/{out['requests']} "
+        f"finished, restarts {[st for st, _ in restarts(out['events'])]} (AllocatorOOM), "
+        f"restored from steps {targets}, peak reserved {rep['peak_reserved']} of "
+        f"{kr.n_chunks} x 2 MiB, injected {rep['injected_faults']}, {rep['n_trace_events']} "
+        f"trace events; restarts, memory report and trace equal to the CPU port's run; tokens "
+        f"equal bit for bit to the fault-free twin's. Wall time on the card: faulted run "
+        f"{card_s} s, twin {twin_s} s (CPU reference {cpu_s} s)")
+    return dict(config=dict(KR_FULL, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                            dtype=str(cfg.dtype).split(".")[-1]),
+                finished=out["finished"], restarts=restarts(out["events"]),
+                restore_targets=targets, peak_reserved=rep["peak_reserved"],
+                injected_faults=rep["injected_faults"], trace_events=rep["n_trace_events"],
+                card_s=card_s, twin_card_s=twin_s, cpu_reference_s=cpu_s)
+
+
+def rebuilt_arena(workdir: Path, rng) -> dict:
+    """7c: a second full-width faulted engine stopped two steps past its
+    restart, sequences still running. Every live sequence's chunks, over
+    all layers and K/V, are pairwise disjoint and inside the arena; a
+    seeded bf16 tensor scattered into them and gathered back is bit-exact,
+    and each kernel call equals its plain version bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stitch_copy import stitch_gather, stitch_scatter
+    from repro_torch.serve.killrecover import KillRecoverConfig, build_schedule
+
+    kr = KillRecoverConfig.for_backend("gmlake", **KR_FULL)
+    eng = full_width_engine(kr, full_width_params(kr, DEVICE), build_schedule(kr), DEVICE)
+    out = supervised(eng, workdir / "stopped", kr, KR_STOP_STEPS)
+    got = restarts(out["events"])
+    targets = restore_targets(eng)
+    assert got and targets and max(targets) < KR_STOP_STEPS == eng.steps, (got, targets)
+    assert sorted(eng.running) == sorted(eng.kv.seqs) and eng.running, eng.kv.seqs
+    kv = eng.kv
+    rids = sorted(kv.seqs)
+    ids = []
+    for layer in range(kv.config.n_layers):
+        for name in ("k", "v"):
+            table, lens = kv.page_table(rids, layer, name)
+            for i, rid in enumerate(rids):
+                row = kv._extent_chunks(rid, layer, name)
+                assert table[i, :len(row)].tolist() == row, (rid, layer, name)
+                assert len(row) * kv.config.chunk_tokens >= int(lens[i])
+                ids.extend(row)
+    assert len(ids) == len(set(ids)), "live sequences share a chunk"
+    assert 0 <= min(ids) and max(ids) < kv.config.n_chunks == kv.arena.buf.shape[0]
+    buf = kv.arena.buf
+    cmap = ints(ids)
+    values = rand(rng, (len(ids), buf.shape[1]), buf.dtype)
+    want = ref.stitch_scatter_ref(buf.clone(), cmap, values)
+    stitch_scatter(buf, cmap, values)
+    assert same_bits(buf, want), "stitch_scatter != plain scatter"
+    del want
+    back = stitch_gather(buf, cmap)
+    assert same_bits(back, values), "gather(scatter(x)) != x"
+    assert same_bits(back, ref.stitch_gather_ref(buf, cmap)), "stitch_gather != plain gather"
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    nbytes = values.numel() * values.element_size()
+    log(f"phase 7c: stopped at step {eng.steps} after restarts {[st for st, _ in got]} "
+        f"(restored from {targets}) with {len(rids)} sequences running: {len(ids)} chunks "
+        f"over {kv.config.n_layers} layers x K/V, pairwise disjoint inside the "
+        f"{kv.config.n_chunks}-chunk arena; {nbytes / 2**20:.0f} MiB of bf16 scattered and "
+        f"gathered back bit-exact, each equal bit for bit to its plain version")
+    return dict(stopped_at=eng.steps, restarts=got, restore_targets=targets,
+                sequences=len(rids), chunks=len(ids), bytes=nbytes)
+
+
+def kill_recover(card: str, rng) -> dict:
+    """Phase 7 with the launch counts zeroed before it and read after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="kill-recover-") as tmp:
+        workdir = Path(tmp)
+        reference = kill_recover_reference(workdir)
+        full = kill_recover_full(workdir / "full", card)
+        arena = rebuilt_arena(workdir / "arena", rng)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"phase 7: kernel launches on the kill/recover path {counts}")
+    assert counts["stitch_gather"] > 0 and counts["stitch_scatter"] > 0, counts
+    return dict(counts=counts, reference_scenario=reference, full_width=full,
+                rebuilt_arena=arena)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -862,12 +1156,15 @@ def main() -> int:
             f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of bound")
     del inp  # the serving phases' arenas: phase 6 measures the training path alone
     trained = train_path(card)
+    kr = kill_recover(card, rng)
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
-                                   "train": trained["counts"][row["name"]]}
+                                   "train": trained["counts"][row["name"]],
+                                   "kill_recover": kr["counts"][row["name"]]}
     print(json.dumps({"attention_shapes": shapes}))
     print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kill_recover": {k: v for k, v in kr.items() if k != "counts"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

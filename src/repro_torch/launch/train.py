@@ -59,7 +59,7 @@ def run(args: argparse.Namespace,
     is handed to ``Supervisor.run``."""
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the parallelism port (ROADMAP queue A8); "
+            "--model-parallel > 1 needs the parallelism port (ROADMAP queue A, parallelism); "
             "this trainer runs on one device")
     device = resolve_device(args.device)
     entry = get_arch(args.arch)

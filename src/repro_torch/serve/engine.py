@@ -68,6 +68,14 @@ class EngineConfig:
     kv_head_dim: Optional[int] = None
 
 
+def _host(leaf) -> np.ndarray:
+    """A ``dump_state`` leaf as a host array: restores hand back tensors,
+    on the card when the supervisor restores onto it."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.cpu().numpy()
+    return np.asarray(leaf)
+
+
 class ServeEngine:
     """Dense-cache model execution + stitched-arena KV accounting."""
 
@@ -282,13 +290,13 @@ class ServeEngine:
         self.running.clear()
         self.finished.clear()
         self._slot_of.clear()
-        prompt_tok = np.asarray(state["prompt_tok"])
-        prompt_len = np.asarray(state["prompt_len"])
-        gen_tok = np.asarray(state["gen_tok"])
-        gen_len = np.asarray(state["gen_len"])
-        max_new = np.asarray(state["max_new"])
-        phase = np.asarray(state["phase"])
-        slot = np.asarray(state["slot"])
+        prompt_tok = _host(state["prompt_tok"])
+        prompt_len = _host(state["prompt_len"])
+        gen_tok = _host(state["gen_tok"])
+        gen_len = _host(state["gen_len"])
+        max_new = _host(state["max_new"])
+        phase = _host(state["phase"])
+        slot = _host(state["slot"])
         running_rows = []
         for i in range(prompt_tok.shape[0]):
             rid = i  # req ids are dense: itertools.count() from 0
@@ -318,6 +326,43 @@ class ServeEngine:
         self.steps = step
         self._dirty = False
         self.recorder.mark(f"engine.restore@{step}")
+
+    def run_supervised(self, ckpt, max_steps: int = 512,
+                       config=None) -> "Supervisor":
+        """Drive the engine to completion under a ``Supervisor``.
+
+        Each supervisor step is one engine decode step over the dumped
+        state; an ``AllocatorOOM`` (or any recoverable error) triggers
+        restore from the last committed checkpoint onto the engine's
+        device, and ``load_state`` rebuilds the KV arena tight on whatever
+        capacity the device still has. Returns the supervisor (its
+        ``events`` log is the audit trail the kill/recover scenario
+        asserts on).
+        """
+        from ..ft.supervisor import Supervisor, SupervisorConfig
+
+        cfg = config if config is not None else SupervisorConfig(
+            checkpoint_every=4, max_restarts=8, restart_reset_after=8,
+        )
+
+        def step_fn(state, batch):
+            self.load_state(state)
+            self.step()
+            return self.dump_state(), {
+                "finished": float(len(self.finished)),
+                "running": float(len(self.running)),
+            }
+
+        sup = Supervisor(step_fn, lambda i: None, ckpt, cfg, device=self.device)
+        state = self.dump_state()
+        ckpt.save(0, state)  # a restore target exists before any step
+        done = 0
+        while (self.waiting or self.running) and done < max_steps:
+            chunk = min(cfg.checkpoint_every, max_steps - done)
+            state, _ = sup.run(state, done, chunk)
+            done += chunk
+            self.load_state(state)
+        return sup
 
     # ------------------------------------------------------------------
     def latency_report(self) -> Dict[str, Any]:

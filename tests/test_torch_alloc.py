@@ -1,5 +1,6 @@
-"""Port parity: the port keeps its own copy of the allocator modules, and
-this file is what keeps the copy from drifting. The checked-in engine traces
+"""Port parity: the port keeps its own copy of the allocator, load-generator,
+simulator and chaos modules, and this file is what keeps the copy from
+drifting. The checked-in engine traces
 and fixed-seed training traces replay through ``repro_torch.alloc`` and
 ``repro.alloc`` with identical state counts, peaks and OOM points."""
 
@@ -7,6 +8,7 @@ from pathlib import Path
 
 import pytest
 
+from repro.alloc import registry as jregistry
 from repro.core import trace as jtrace
 from repro_torch.alloc import GB, registry
 from repro_torch.core import trace as ttrace
@@ -15,7 +17,10 @@ ROOT = Path(__file__).resolve().parent.parent
 DATA = Path(__file__).parent / "data"
 COPIED = ["alloc/chunks.py", "alloc/metrics.py", "alloc/protocol.py", "alloc/recovery.py",
           "alloc/registry.py", "alloc/caching_allocator.py", "alloc/gmlake.py",
-          "core/trace.py"]
+          "alloc/stalloc.py", "alloc/ellm.py", "alloc/hybrid.py", "core/trace.py",
+          "serve/loadgen.py", "serve/simulate.py", "chaos/__init__.py", "chaos/sentinel.py",
+          "chaos/scenarios.py", "chaos/campaign.py"]
+BACKENDS = ["caching", "native", "gmlake", "stalloc", "ellm", "hybrid"]
 #: (checked-in trace, capacity GB), as tests/test_golden_equivalence.py replays them
 ENGINE_TRACES = [("serve_engine_smollm", 2), ("serve_engine_multitenant", 2),
                  ("serve_engine_killrecover", 1)]
@@ -40,10 +45,17 @@ def test_copy_is_verbatim(path):
 
 
 def test_port_registers_the_serving_backends():
-    assert registry.names() == ["caching", "native", "gmlake"]
+    assert registry.names() == BACKENDS == jregistry.names()
 
 
-@pytest.mark.parametrize("backend", ["caching", "native", "gmlake"])
+def test_port_exports_the_reference_names():
+    import repro.alloc
+    import repro_torch.alloc
+
+    assert repro_torch.alloc.__all__ == repro.alloc.__all__
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("name,cap_gb", ENGINE_TRACES)
 def test_engine_trace_replay_matches_reference(name, cap_gb, backend):
     path = DATA / f"{name}.trace.json"

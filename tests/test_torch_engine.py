@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve, train
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import EngineConfig, ServeEngine
+from repro_torch.serve.killrecover import KillRecoverConfig, build_engine, run_scenario
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_state
 
@@ -169,7 +170,7 @@ def test_launcher_smoke_on_cpu():
     assert set(out["trace_replay"]) == {"caching", "gmlake"}
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a card, the CUDA default raises instead of falling back."""
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -187,3 +188,8 @@ def test_entry_points_default_to_cuda():
         SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "smollm-135m", "--smoke", "--steps", "1"])
+    kr = KillRecoverConfig(requests=1, max_new=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(kr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(kr, str(tmp_path))

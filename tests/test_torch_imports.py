@@ -35,5 +35,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.train.step", "repro_torch.train.optimizer",
                  "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
                  "repro_torch.ft.supervisor", "repro_torch.launch.train",
-                 "repro_torch.core.offload"):
+                 "repro_torch.core.offload", "repro_torch.serve.killrecover",
+                 "repro_torch.chaos.campaign", "repro_torch.alloc.hybrid",
+                 "repro_torch.serve.simulate"):
         assert name in result["imported"]

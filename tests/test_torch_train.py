@@ -455,6 +455,6 @@ def test_launcher_smoke_loss_decreases(tmp_path):
 
 
 def test_launcher_rejects_model_parallelism(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="parallelism port"):
         train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
                     "--model-parallel", "2", "--ckpt-dir", str(tmp_path)])
