@@ -16,7 +16,10 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    kernel's tiles and chunks, an arena that is not 16-byte aligned, 50
    CUDA-graph replays of one call whose splits merge in the kernel, with
    new lengths before each replay, and replays of a graph captured before
-   a larger call grew the kernel's workspace;
+   a larger call grew the kernel's workspace; and at the KV geometries of
+   the newer architectures (``NEW_GEOMETRIES``: dbrx/grok/internlm2,
+   starcoder2, danube3, paligemma), bf16 through ``arena_view`` of 2 MiB
+   chunks, lengths at tile and chunk edges;
 3. serve smollm-135m at full width through ``repro_torch.launch.serve``;
 4. the lake: write a mid-run engine's dense K/V into its own stitched KV
    cache, compare stitched decode attention (the kernel) with the dense
@@ -29,8 +32,9 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    graph, replayed between CUDA events), the kernel's wrapper also per call
    with host work included (``call_ms``), and compute its bound; time
    decode attention also at long (16383-token) and ragged (64 sequences of
-   1..16383 tokens) smollm-135m shapes, and an empty kernel in the same
-   graph harness as the practical floor of one launch;
+   1..16383 tokens) smollm-135m shapes, long shapes at dbrx-132b's and
+   starcoder2-15b's geometry, and an empty kernel in the same graph
+   harness as the practical floor of one launch;
 6. the training path, with launch counts zeroed before it and read after:
    (a) the smoke config trained 10 steps on the card and on the CPU from
    the same seed and batches, in float32 (each loss within
@@ -65,13 +69,30 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    steps past its restart: every live sequence's chunks over all layers
    and K/V pairwise disjoint and inside the arena, and a seeded bf16
    tensor scattered into them and gathered back bit-exact, each kernel
-   call equal bit for bit to its plain version.
+   call equal bit for bit to its plain version;
+8. the MoE and VLM families: (a) dbrx-132b at full width, depth cut to
+   ``DBRX_LAYERS``, served through the launcher's engine on phase 3's
+   workload (16/16 finished, init time and tokens/s against the
+   decode-step byte bound), and a second run on the same weights decoding
+   the same tokens bit for bit; (b) the lake at its KV geometry (T_c =
+   1024): stitched vs dense attention on both layers, its 1.23 GB
+   embedding table round-tripped through a fragmented arena, with launch
+   counts zeroed before (a) and all > 0 after (b), then 5 steady decode
+   steps timed; (c) layer 0's MoE at
+   full width on 64 tokens, card vs CPU in float32: routing and dropped
+   slots equal, output within 1e-4 of each row's largest value, aux loss
+   within 1e-5; (d) the smoke configs of danube3, internlm2, starcoder2,
+   dbrx, grok and paligemma card vs CPU through prefill and 4 decode steps
+   (logits within 1e-4, argmax equal), and paligemma-3b at full width cut
+   to 2 layers (256 patches + 16 tokens, 8 decode steps, finite logits) with
+   its stitched attention held to the dense path; phase 8's wall time.
 
-Prints an ``{"attention_shapes": [...]}`` line, a ``{"training": {...}}``
-line, a ``{"kernels": [...]}`` line (``launches`` is each kernel's count
-on the serving path, phases 3-4, whose shapes phase 5 times;
-``launches_by_path`` has it beside the training path's, phase 6, and the
-kill/recover path's, phase 7) and a ``{"kill_recover": {...}}`` line, then
+Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
+``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
+is each kernel's count on the serving path, phases 3-4, whose shapes phase
+5 times; ``launches_by_path`` has it beside the training path's, phase 6,
+the kill/recover path's, phase 7, the MoE serving path's, 8a-b, and
+8d's), a ``{"kill_recover": {...}}`` and a ``{"moe": {...}}`` line, then
 the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
@@ -98,6 +119,7 @@ import torch  # noqa: E402
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # attention tolerances, as tests/test_kernels.py
 ATTN_CASES = [
     # (B, H, KVH, D, chunk_tokens, n_chunks, n_phys), as tests/test_kernels.py
@@ -119,6 +141,31 @@ TRAIN_FAIL_STEP = 15
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, f32 smoke config (no TF32)
 TRAIN_LOSS_RTOL_BF16 = 2.0**-8  # card vs CPU, bf16 smoke config: one bf16 rounding
 PARITY_STEPS = 10
+#: phase 2's KV geometries of the newer architectures, bf16 in 2 MiB
+#: chunks: (name, H, KVH, D); T_c 1024, 2048, 1092 (512 B left over in a
+#: chunk) and 4096 tokens
+NEW_GEOMETRIES = [("dbrx/grok/internlm2", 48, 8, 128), ("starcoder2", 48, 4, 128),
+                  ("danube3", 32, 8, 120), ("paligemma", 8, 1, 256)]
+#: phase 8a: dbrx-132b at full width cut to this depth (2 layers hold 6.34 B
+#: expert parameters, 12.7 GB in bf16), serving phase 3's workload
+DBRX_LAYERS = 2
+DBRX_ARGS = ["--arch", "dbrx-132b", "--requests", "16", "--max-new", "16",
+             "--max-batch", "8", "--seed", "0"]
+#: phase 8b times this many decode steps of the lake's engine (8 running)
+DBRX_TIMED_STEPS = 5
+#: phase 8c: one full-width MoE layer on this many seeded tokens (capacity 20
+#: against a mean load of 16; with this seed and the engine's router, 8 slots
+#: drop, as the same float32 routing on the CPU shows)
+MOE_TOKENS, MOE_SEED = 64, 1
+MOE_OUT_TOL, MOE_AUX_RTOL = 1e-4, 1e-5
+#: phase 8d: smoke configs held card against CPU, prefill then decode steps
+FAMILY_ARCHS = ("h2o-danube-3-4b", "internlm2-20b", "starcoder2-15b", "dbrx-132b",
+                "grok-1-314b", "paligemma-3b")
+FAMILY_DECODE_STEPS = 4
+FAMILY_RTOL = 1e-4
+#: phase 8d: paligemma-3b at full width cut to 2 layers, 2 sequences of 256
+#: patches + 16 tokens, then 8 decode steps
+PALI_LAYERS, PALI_BATCH, PALI_TEXT, PALI_DECODE = 2, 2, 16, 8
 
 
 def log(msg: str) -> None:
@@ -324,6 +371,48 @@ def check_attention_kernel(rng) -> None:
         f"row-scaled limit {attn_share:.4g}")
 
 
+def check_new_geometries(rng) -> dict:
+    """Decode attention at the KV geometries of the newer architectures, in
+    bf16 through ``StitchedKVCache.arena_view`` of real 2 MiB chunks (the
+    strided view: danube3's 1092-token chunks leave 512 bytes unused), with
+    K and V under separate tables and sequence lengths at the edges of the
+    kernel's tiles and of the chunks (danube3's all below its 4096-token
+    window: neither this kernel nor the reference's has a window). Returns
+    each geometry's max abs error and plan."""
+    from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stitched_attention import attention_plan, stitched_decode_attention
+
+    B, C, NP = 8, 3, 32
+    out = {}
+    for name, H, KVH, D in NEW_GEOMETRIES:
+        kv = StitchedKVCache(KVCacheConfig(n_layers=1, n_kv=KVH, head_dim=D, n_chunks=NP,
+                                           device=DEVICE))
+        tc = kv.config.chunk_tokens
+        kv.arena.buf.copy_(rand(rng, kv.arena.buf.shape, torch.bfloat16))
+        view = kv.arena_view()
+        plan = attention_plan(B, H, KVH, D, tc, C, 2)
+        tt = plan.tile_tokens
+        err = 0.0
+        for lens in ([1, tt - 1, tt, tt + 1, tc - 1, tc, tc + 1, C * tc],
+                     rng.integers(1, C * tc + 1, size=B).tolist()):
+            q = rand(rng, (B, H, D), torch.bfloat16)
+            ptk = ints(rng.integers(0, NP, size=(B, C)))
+            ptv = ints(rng.integers(0, NP, size=(B, C)))
+            sl = ints(lens)
+            got = stitched_decode_attention(q, view, view, ptk, sl, page_table_v=ptv)
+            want = ref.stitched_decode_attention_ref(q, view, view, ptk, sl, ptv)
+            err = max(err, attn_close(got, want, (name, lens)))
+        out[name] = dict(T_c=tc, tile_tokens=tt, kv_per_block=plan.kv_per_block,
+                         max_abs_err=err)
+        del kv, view
+    torch.cuda.synchronize()
+    log(f"phase 2: decode attention at the new KV geometries (bf16, 2 MiB chunks through "
+        f"arena_view, tile/chunk-edge and random lengths, separate K/V tables) within "
+        f"tolerance: {out}")
+    return out
+
+
 def check_graph_replays(rng) -> float:
     """One call captured in a CUDA graph, at smollm-135m's full KV geometry
     where the splits merge through the kernel's tickets; new lengths (0
@@ -422,15 +511,14 @@ def serve() -> dict:
     return out
 
 
-def lake(rng) -> dict:
-    """Check the stitched data path against the engine's dense path; return
-    the inputs phase 5 times the kernels on."""
+def lake(rng, eng, what: str) -> dict:
+    """Check the stitched data path against the engine's dense path, after
+    ``LAKE_STEPS`` steps of ``eng``; return the inputs phase 5 times the
+    kernels on."""
     from repro_torch.alloc import CHUNK_SIZE
     from repro_torch.core.arena import Arena, ArenaConfig
-    from repro_torch.launch import serve as serve_cli
     from repro_torch.models.layers import decode_attention_dense
 
-    eng = serve_cli.build_engine(serve_cli.parse_args(SERVE_ARGS))
     for _ in range(LAKE_STEPS):
         eng.step()
     cfg, kv, cache = eng.cfg, eng.kv, eng._cache
@@ -450,30 +538,33 @@ def lake(rng) -> dict:
         got = kv.decode_attention(rids, layer, q)
         want = decode_attention_dense(q[:, None], cache["k"][layer, slots],
                                       cache["v"][layer, slots], lens_t)[:, 0]
-        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL, atol=BF16_TOL)
-        err = max(err, max_err(got, want))
-    log(f"phase 4: stitched attention == dense attention on {cfg.n_layers} layers x "
+        err = max(err, attn_close(got, want, (what, "lake layer", layer)))
+    log(f"{what}: stitched attention == dense attention on {cfg.n_layers} layers x "
         f"{len(rids)} sequences (lens {lens}, chunk_tokens {kv.config.chunk_tokens}), "
         f"max abs err {err:.3g}")
 
-    # the embedding table through an arena fragmented by alloc/free churn
-    arena = Arena(ArenaConfig(n_chunks=64, dtype=cfg.dtype, device=DEVICE))
+    # the embedding table through an arena fragmented by alloc/free churn: 16
+    # freed 2-chunk holes, and no more free chunks than the table needs
+    emb = eng.params["embed"]
+    emb_chunks = -(-emb.numel() * emb.element_size() // CHUNK_SIZE)
+    arena = Arena(ArenaConfig(n_chunks=max(64, emb_chunks + 32), dtype=cfg.dtype,
+                              device=DEVICE))
     churn = [arena.alloc_elems(2 * CHUNK_SIZE // cfg.dtype.itemsize) for _ in range(32)]
     for a in churn[::2]:
         arena.free(a)
-    emb = eng.params["embed"]
     alloc = arena.alloc_elems(emb.numel())
     extents = alloc.block.extents
     assert len(extents) > 1, extents
     arena.store(alloc, emb)
     assert torch.equal(arena.load(alloc, tuple(emb.shape)), emb)
-    log(f"phase 4: {emb.numel() * emb.element_size() / 1e6:.1f} MB embedding table "
+    log(f"{what}: {emb.numel() * emb.element_size() / 1e6:.1f} MB embedding table "
         f"round-tripped bit-exact through {len(extents)} stitched extents")
 
     ptk, sl = kv.page_table(rids, 0, "k")
     ptv, _ = kv.page_table(rids, 0, "v", pad_chunks=ptk.shape[1])
     return dict(arena=arena.buf, cmap=arena.chunk_map(alloc), q=q, view=kv.arena_view(),
-                ptk=ptk, ptv=ptv, sl=sl, lens=lens)
+                ptk=ptk, ptv=ptv, sl=sl, lens=lens, attn_err=err, extents=len(extents),
+                emb_bytes=emb.numel() * emb.element_size())
 
 
 # ---------------------------------------------------------------------------
@@ -550,32 +641,46 @@ def timings(inp: dict, counts: dict) -> list:
     return rows
 
 
+#: attention_shapes: (shape, (H, KVH, D), sequences)
+LONG_SHAPES = [("long", (9, 3, 64), 8), ("ragged", (9, 3, 64), 64),
+               ("dbrx-long", (48, 8, 128), 8), ("starcoder2-long", (48, 4, 128), 8)]
+LONG_TOKENS = 16383
+
+
 def attention_shapes(rng) -> list:
-    """Decode attention beyond the main path's shape, in smollm-135m's KV
-    geometry (bf16, T_c = 5461, strided views of 2 MiB chunks): ``long``,
-    8 sequences of 16383 tokens over 3 chunks, K and V in one buffer under
-    one table; ``ragged``, 64 sequences of 1..16383 tokens (uniform, from
-    the script's seed), separate K and V buffers under one table that is a
-    permutation of 192 chunks (about 400 MB of KV, far over the 50 MB L2).
-    Each is checked against the plain version once, then timed."""
+    """Decode attention beyond the main path's shape, bf16 in strided views
+    of 2 MiB chunks. Every shape has separate K and V buffers of B x C
+    chunks under one page table that is a permutation of them, so no chunk
+    is read twice and the counted bytes are the bytes in HBM. In
+    smollm-135m's KV geometry (T_c = 5461): ``long``, 8 sequences of 16383
+    tokens over 3 chunks each; ``ragged``, 64 sequences of 1..16383 tokens
+    (uniform, from the script's seed; about 800 MB of K and V, far over the
+    50 MB L2). ``dbrx-long`` and ``starcoder2-long`` are ``long`` in
+    dbrx-132b's (48/8 heads, D 128, T_c 1024) and starcoder2-15b's (48/4,
+    T_c 2048) geometry; at starcoder2's 12 query heads a kv head the
+    kernel's float32 FMAs come to 60 % of the CUDA cores' time for the bytes
+    (``fma_ms``). Each is checked against the plain version once, then
+    timed."""
+    from repro_torch.alloc import CHUNK_SIZE
     from repro_torch.kernels import ref
     from repro_torch.kernels.stitched_attention import stitched_decode_attention
 
-    H, KVH, D, Tc, C = 9, 3, 64, 5461, 3
-    used = Tc * KVH * D
     rows = []
-    for name, B, NP in (("long", 8, 32), ("ragged", 64, 192)):
+    for name, (H, KVH, D), B in LONG_SHAPES:
+        Tc = CHUNK_SIZE // (KVH * D * 2)
+        C = -(-LONG_TOKENS // Tc)
+        NP = B * C
+        used = Tc * KVH * D
         k_buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
-        v_buf = k_buf if name == "long" else rand(rng, (NP, 1 << 20), torch.bfloat16)
+        v_buf = rand(rng, (NP, 1 << 20), torch.bfloat16)
         k_view = k_buf[:, :used].unflatten(1, (Tc, KVH, D))
         v_view = v_buf[:, :used].unflatten(1, (Tc, KVH, D))
         q = rand(rng, (B, H, D), torch.bfloat16)
-        if name == "long":
-            pt = ints(np.stack([rng.permutation(NP)[:C] for _ in range(B)]))
-            lens = [C * Tc] * B
+        pt = ints(rng.permutation(NP).reshape(B, C))
+        if name == "ragged":
+            lens = rng.integers(1, LONG_TOKENS + 1, size=B).tolist()
         else:
-            pt = ints(rng.permutation(NP).reshape(B, C))
-            lens = rng.integers(1, C * Tc + 1, size=B).tolist()
+            lens = [LONG_TOKENS] * B
         sl = ints(lens)
 
         def kernel():
@@ -587,9 +692,14 @@ def attention_shapes(rng) -> list:
         err = attn_close(kernel(), plain(), name)
         nbytes = (2 * sum(lens) * KVH * D * 2 + 2 * q.numel() * 2 + pt.numel() * 4
                   + sl.numel() * 4)
-        rows.append(dict(shape=name, B=B, tokens=sum(lens), max_abs_err=err,
-                         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
-                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"))
+        flops = 4 * sum(lens) * H * D
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        rows.append(dict(shape=name, H=H, KVH=KVH, D=D, T_c=Tc, B=B, tokens=sum(lens),
+                         max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
+                         bound_ms=max(bytes_ms, flops_ms),
+                         bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                         fma_ms=flops / F32_FLOPS_PER_S * 1e3))
         del k_buf, v_buf, k_view, v_view
     return rows
 
@@ -1111,6 +1221,269 @@ def kill_recover(card: str, rng) -> dict:
                 rebuilt_arena=arena)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE and VLM families
+# ---------------------------------------------------------------------------
+
+
+def rel_rows(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error over each last-axis row's largest |value|."""
+    err = (got.double().cpu() - want.double().cpu()).abs().amax(-1)
+    return float((err / want.double().cpu().abs().amax(-1)).max())
+
+
+def dbrx_config():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("dbrx-132b").full, n_layers=DBRX_LAYERS)
+
+
+def dbrx_engine(cfg, params):
+    """``launch/serve.py``'s ``build_engine`` for dbrx-132b cut to
+    ``DBRX_LAYERS`` (the launcher builds whole configs only): its engine
+    config and submit loop on ``DBRX_ARGS``, with ``params`` given."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+
+    args = serve_cli.parse_args(DBRX_ARGS)
+    eng = ServeEngine(cfg, params, EngineConfig(max_batch=args.max_batch, device=DEVICE))
+    rng = np.random.default_rng(args.seed)
+    for _ in range(args.requests):
+        plen = int(rng.integers(8, 64))
+        eng.submit(rng.integers(0, cfg.vocab, size=plen), max_new=args.max_new)
+    return eng
+
+
+def serve_dbrx(card: str):
+    """8a: dbrx-132b at full width (depth cut to ``DBRX_LAYERS``) through the
+    serving launcher's engine and drain, phase 3's workload; then a second
+    engine on the same weights must decode the same tokens bit for bit (the
+    MoE combine is deterministic). Returns (params, result)."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import family_of
+    from repro_torch.tree import leaves
+
+    cfg = dbrx_config()
+    args = serve_cli.parse_args(DBRX_ARGS)
+    t0 = time.perf_counter()
+    params = family_of(cfg).init_params(cfg, torch.Generator().manual_seed(args.seed), DEVICE)
+    eng = dbrx_engine(cfg, params)
+    init_s = sync_s(t0)
+    out = serve_cli.run(eng, args)
+    assert out["finished"] == out["requests"] == 16, out
+    twin = dbrx_engine(cfg, params)
+    twin_out = serve_cli.run(twin, args)
+    assert tokens(twin) == tokens(eng), "dbrx: two runs decoded different tokens"
+    # a decode step reads every weight once: all experts' (the dispatch runs
+    # all E x C slots), attention's, and the tied embedding as the logits head
+    step_bytes = wbytes = sum(t.numel() * t.element_size() for t in leaves(eng.params))
+    step_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    bound_tps = args.max_batch / step_ms * 1e3
+    log(f"phase 8a: {cfg.name} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, bf16; {wbytes / 1e9:.2f} GB of weights) on {card}: "
+        f"init {init_s} s (seeded weights drawn on the host, copied to the card); served "
+        f"{out['finished']}/{out['requests']} in {out['decode_steps']} decode steps at "
+        f"{out['tokens_per_s']} tokens/s (second run {twin_out['tokens_per_s']}, same tokens "
+        f"bit for bit), against a decode-step bound of {step_ms:.3f} ms ({step_bytes / 1e9:.2f}"
+        f" GB at 3.35 TB/s), at most {bound_tps:.0f} tokens/s at batch {args.max_batch}")
+    return eng.params, dict(init_s=init_s, finished=out["finished"], requests=out["requests"],
+                            decode_steps=out["decode_steps"], tokens_per_s=out["tokens_per_s"],
+                            twin_tokens_per_s=twin_out["tokens_per_s"], weight_bytes=wbytes,
+                            step_bound_ms=step_ms, bound_tokens_per_s=bound_tps,
+                            arena=out["arena"])
+
+
+def moe_layer(params, cfg) -> dict:
+    """8c: layer 0's MoE at full width on ``MOE_TOKENS`` seeded tokens, in
+    float32 (TF32 off) on the card and on the CPU from the same weights: the
+    same routing exactly (top-k experts, sorted slots, dropped slots), the
+    output within ``MOE_OUT_TOL`` of each row's largest value and the aux
+    loss within ``MOE_AUX_RTOL``."""
+    from repro_torch.models import moe
+
+    p = {k: v[0].float() for k, v in params["layers"]["mlp"].items()}
+    x = torch.from_numpy(np.random.default_rng(MOE_SEED).standard_normal(
+        (1, MOE_TOKENS, cfg.d_model)).astype(np.float32))
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        xd = x.to(dev)
+        t0 = time.perf_counter()
+        out, aux = moe.moe_apply(cfg, pd, xd)
+        s_ = sync_s(t0) if dev == DEVICE else round(time.perf_counter() - t0, 3)
+        r = moe.route(cfg, pd["router"], xd[0])
+        got[dev] = (out.cpu(), float(aux), r.topi.cpu(), r.order.cpu(), r.kept.cpu(), s_)
+        del pd
+    (o_c, a_c, ti_c, or_c, k_c, s_card), (o_h, a_h, ti_h, or_h, k_h, s_cpu) = \
+        got[DEVICE], got["cpu"]
+    capacity = r.capacity
+    assert torch.equal(ti_c, ti_h) and torch.equal(or_c, or_h), "routing differs"
+    assert torch.equal(k_c, k_h), "dropped slots differ"
+    dropped = int((~k_h).sum())
+    assert dropped > 0, "no slot dropped: the capacity path was not exercised"
+    rel = rel_rows(o_c[0], o_h[0])
+    assert rel <= MOE_OUT_TOL, rel
+    aux_rel = abs(a_c - a_h) / abs(a_h)
+    assert aux_rel <= MOE_AUX_RTOL, (a_c, a_h)
+    log(f"phase 8c: one full-width MoE layer on {MOE_TOKENS} tokens, card vs CPU in float32: "
+        f"the same top-{cfg.top_k} experts and the same {dropped} dropped slots of "
+        f"{k_h.numel()} (capacity {capacity}); "
+        f"output within {rel:.3g} of each row's largest value (limit {MOE_OUT_TOL}), aux "
+        f"{a_c:.7f} vs {a_h:.7f} (rel {aux_rel:.3g}); card {s_card} s, CPU {s_cpu} s")
+    return dict(tokens=MOE_TOKENS, capacity=capacity, dropped=dropped, slots=k_h.numel(),
+                out_rel=rel, aux=a_c, aux_rel=aux_rel, card_s=s_card, cpu_s=s_cpu)
+
+
+def family_batch(cfg, rng, n_batch: int, n_text: int, device) -> dict:
+    """Seeded prompt tokens, and for the vlm family patch embeddings."""
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, size=(n_batch, n_text)).astype(np.int32))}
+    if hasattr(cfg, "n_patches"):
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (n_batch, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def family_smoke() -> dict:
+    """8d: each newer architecture's smoke config (float32) on the card and
+    on the CPU from the same seeded weights: prefill of 2 x 31 positions,
+    then ``FAMILY_DECODE_STEPS`` decode steps; logits within ``FAMILY_RTOL``
+    of each row's largest value and the same argmax."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import family_of
+
+    rows = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_arch(arch).smoke
+        fam = family_of(cfg)
+        logits = {}
+        for dev in (DEVICE, "cpu"):
+            rng = np.random.default_rng(8)
+            params = fam.init_params(cfg, torch.Generator().manual_seed(0), dev)
+            n_text = 31 - getattr(cfg, "n_patches", 0)
+            out, cache = fam.prefill(cfg, params, family_batch(cfg, rng, 2, n_text, dev),
+                                     fam.init_cache(cfg, 2, 40, dev))
+            seq = [out[:, -1]]
+            for _ in range(FAMILY_DECODE_STEPS):
+                nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2,)).astype(np.int32))
+                out, cache = fam.decode_step(cfg, params, cache, nxt.to(dev))
+                seq.append(out)
+            logits[dev] = torch.stack(seq).cpu()
+        rel = rel_rows(logits[DEVICE], logits["cpu"])
+        assert rel <= FAMILY_RTOL, (arch, rel)
+        assert torch.equal(logits[DEVICE].argmax(-1), logits["cpu"].argmax(-1)), arch
+        rows[arch] = dict(family=fam.name, rel=rel)
+    log(f"phase 8d: smoke configs, prefill + {FAMILY_DECODE_STEPS} decode steps, card vs CPU "
+        f"in float32, logits within {FAMILY_RTOL} of each row's largest value and argmax "
+        f"equal: {rows}")
+    return rows
+
+
+def paligemma_full(rng, card: str) -> dict:
+    """8d: paligemma-3b at full width cut to ``PALI_LAYERS`` layers: prefill
+    of ``PALI_BATCH`` sequences of 256 seeded patch embeddings and
+    ``PALI_TEXT`` tokens, ``PALI_DECODE`` decode steps, every logit finite;
+    then its K/V written into a stitched KV cache at its geometry (MQA, D
+    256, 4096 tokens a chunk) and stitched decode attention held to the
+    dense path on every layer (row-scaled 2e-2)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
+    from repro_torch.models import paligemma
+    from repro_torch.models.layers import decode_attention_dense
+
+    cfg = dataclasses.replace(get_arch("paligemma-3b").full, n_layers=PALI_LAYERS)
+    t0 = time.perf_counter()
+    params = paligemma.init_params(cfg, torch.Generator().manual_seed(0), DEVICE)
+    init_s = sync_s(t0)
+    n = cfg.n_patches + PALI_TEXT + PALI_DECODE
+    batch = family_batch(cfg, np.random.default_rng(9), PALI_BATCH, PALI_TEXT, DEVICE)
+    t0 = time.perf_counter()
+    out, cache = paligemma.prefill(cfg, params, batch,
+                                   paligemma.init_cache(cfg, PALI_BATCH, n, DEVICE))
+    finite = bool(torch.isfinite(out).all())
+    tok = out[:, -1].argmax(-1).int()
+    for _ in range(PALI_DECODE):
+        out, cache = paligemma.decode_step(cfg, params, cache, tok)
+        finite &= bool(torch.isfinite(out).all())
+        tok = out.argmax(-1).int()
+    run_s = sync_s(t0)
+    assert finite and cache["length"].tolist() == [n] * PALI_BATCH, cache["length"]
+
+    kv = StitchedKVCache(KVCacheConfig(n_layers=cfg.n_layers, n_kv=cfg.n_kv, head_dim=cfg.dh,
+                                       dtype=cfg.dtype, n_chunks=16, device=DEVICE))
+    rids = list(range(PALI_BATCH))
+    for rid in rids:
+        kv.add_sequence(rid, n)
+    err = 0.0
+    q = rand(rng, (PALI_BATCH, cfg.n_heads, cfg.dh), cfg.dtype)
+    for layer in range(cfg.n_layers):
+        for rid in rids:
+            kv.write_tokens(rid, layer, "k", 0, cache["k"][layer, rid, :n])
+            kv.write_tokens(rid, layer, "v", 0, cache["v"][layer, rid, :n])
+        got = kv.decode_attention(rids, layer, q)
+        want = decode_attention_dense(q[:, None], cache["k"][layer], cache["v"][layer],
+                                      ints([n] * PALI_BATCH))[:, 0]
+        err = max(err, attn_close(got, want, ("paligemma lake", layer)))
+    log(f"phase 8d: {cfg.name} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.dh}, vocab {cfg.vocab}, bf16) on {card}: "
+        f"init {init_s} s; prefill of {PALI_BATCH} x ({cfg.n_patches} patches + {PALI_TEXT} "
+        f"tokens) and {PALI_DECODE} decode steps in {run_s} s, every logit finite; stitched "
+        f"attention == dense on {cfg.n_layers} layers (chunk_tokens "
+        f"{kv.config.chunk_tokens}), max abs err {err:.3g}")
+    return dict(init_s=init_s, run_s=run_s, tokens=n, attn_err=err,
+                chunk_tokens=kv.config.chunk_tokens)
+
+
+def moe_path(card: str, rng) -> dict:
+    """Phase 8. The MoE path (8a, 8b) runs with the launch counts zeroed
+    before it and read after; 8c uses no kernel; 8d with the counts zeroed
+    again and read after."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    params, served = serve_dbrx(card)
+    cfg = dbrx_config()
+    eng = dbrx_engine(cfg, params)
+    inp = lake(rng, eng, "phase 8b")
+    lake_row = dict(attn_err=inp["attn_err"], extents=inp["extents"],
+                    emb_bytes=inp["emb_bytes"], chunk_tokens=inp["view"].shape[1])
+    del inp
+    # steady decode: 8 sequences running, none finishing or admitted yet
+    t0 = time.perf_counter()
+    for _ in range(DBRX_TIMED_STEPS):
+        eng.step()
+    served["decode_step_ms"] = sync_s(t0) * 1e3 / DBRX_TIMED_STEPS
+    assert len(eng.running) == 8 and not eng.finished, (len(eng.running), len(eng.finished))
+    log(f"phase 8b: {DBRX_TIMED_STEPS} steady decode steps of 8 sequences, "
+        f"{served['decode_step_ms']:.3f} ms a step (host clock after synchronize) against "
+        f"the {served['step_bound_ms']:.3f} ms byte bound")
+    del eng
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"phase 8b: kernel launches on the MoE serving path {counts}")
+    assert all(n > 0 for n in counts.values()), counts
+    layer = moe_layer(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    smoke = family_smoke()
+    pali = paligemma_full(rng, card)
+    torch.cuda.synchronize()
+    fam_counts = ops.launch_counts()
+    assert fam_counts["stitched_decode_attention"] > 0, fam_counts
+    wall = round(time.perf_counter() - t_phase, 3)
+    log(f"phase 8: wall time {wall} s")
+    return dict(counts=counts, family_counts=fam_counts, served=served, lake=lake_row,
+                layer=layer, smoke=smoke, paligemma=pali, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1131,10 +1504,13 @@ def main() -> int:
     rng = np.random.default_rng(0)
     check_copy_kernels(rng)
     check_attention_kernel(rng)
+    geometries = check_new_geometries(rng)
 
     ops.reset_launch_counts()
     serve()
-    inp = lake(rng)
+    from repro_torch.launch import serve as serve_cli
+
+    inp = lake(rng, serve_cli.build_engine(serve_cli.parse_args(SERVE_ARGS)), "phase 4")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"phase 4: kernel launches on the main path {counts}")
@@ -1151,20 +1527,26 @@ def main() -> int:
     log(f"phase 5: worst share of the row-scaled attention limit over all checks "
         f"{attn_share:.4g}")
     for r in shapes:
-        log(f"phase 5: {r['shape']} attention (B={r['B']}, {r['tokens']} tokens, bf16): kernel "
-            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
-            f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of bound")
+        log(f"phase 5: {r['shape']} attention (H/KVH/D {r['H']}/{r['KVH']}/{r['D']}, B={r['B']}, "
+            f"{r['tokens']} tokens, bf16): kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} "
+            f"% of bound; its float32 FMAs at the CUDA cores' peak {r['fma_ms']:.5f} ms")
     del inp  # the serving phases' arenas: phase 6 measures the training path alone
     trained = train_path(card)
     kr = kill_recover(card, rng)
+    moe = moe_path(card, rng)
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
-                                   "kill_recover": kr["counts"][row["name"]]}
-    print(json.dumps({"attention_shapes": shapes}))
+                                   "kill_recover": kr["counts"][row["name"]],
+                                   "moe": moe["counts"][row["name"]],
+                                   "families": moe["family_counts"][row["name"]]}
+    print(json.dumps({"attention_shapes": shapes, "new_geometries": geometries}))
     print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kill_recover": {k: v for k, v in kr.items() if k != "counts"}}))
+    print(json.dumps({"moe": {k: v for k, v in moe.items()
+                              if k not in ("counts", "family_counts")}}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

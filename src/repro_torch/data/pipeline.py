@@ -4,15 +4,16 @@ Counterpart of ``repro.data.pipeline``: every batch is a pure function of
 (seed, step, host) drawn from the same numpy ``SeedSequence`` stream, so
 ``batch_at(step)["tokens"]`` is bit-identical to the reference's, and a
 restart replays the exact stream. Tokens come back as int32 on the device
-the pipeline was made for. Length buckets cycle with the step. The
-reference's ``patch_dim``/``frame_dim`` inputs wait for the model families
-that read them.
+the pipeline was made for. Length buckets cycle with the step. With
+``patch_dim`` (the vlm family) a batch also carries 16 seeded float32
+patch embeddings a sequence, as the reference's; its ``frame_dim`` input
+waits for the audio family.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,8 @@ class DataConfig:
     seed: int = 0
     #: length-bucket multipliers, one per step in turn
     buckets: Tuple[float, ...] = (1.0,)
+    #: vlm: width of the patch embeddings
+    patch_dim: Optional[int] = None
 
 
 class SyntheticTokens:
@@ -56,7 +59,11 @@ class SyntheticTokens:
         t0 = rng.integers(0, cfg.vocab, size=(local, 1))
         steps = np.arange(s)[None, :]
         toks = (t0 + drift * steps + np.cumsum(noise, axis=1)) % cfg.vocab
-        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(self.device)}
+        if cfg.patch_dim is not None:
+            patches = rng.standard_normal((local, 16, cfg.patch_dim)).astype(np.float32)
+            batch["patch_embeds"] = torch.from_numpy(patches).to(self.device)
+        return batch
 
     def __iter__(self) -> Iterator[Dict]:
         step = 0

@@ -7,7 +7,10 @@ Counterpart of ``repro.launch.serve``. Submits a stream of variable-length
 prompts, decodes with continuous batching, and reports throughput and the
 arena's memory behaviour (utilization, BestFit state mix) plus a replay
 comparison of the recorded trace under the caching vs GMLake allocators.
-Runs on the card unless ``--device cpu``.
+Serves the decoder-only families (dense, moe, vlm) and refuses the others,
+as the reference does; like the reference's engine, it submits text
+prompts only, so a vlm model, whose prefill needs patch embeddings, fails
+at its first admission. Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,12 +42,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+#: the families this launcher serves, as the reference's
+SERVED_FAMILIES = ("dense", "moe", "vlm")
+
+
 def build_engine(args: argparse.Namespace) -> ServeEngine:
     """The engine with seeded random weights and every request submitted."""
     device = resolve_device(args.device)
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     fam = family_of(cfg)
+    if fam.name not in SERVED_FAMILIES:
+        raise SystemExit(f"the serve launcher supports decoder-only families, got {fam.name}")
     rng = np.random.default_rng(args.seed)
     params = fam.init_params(cfg, torch.Generator().manual_seed(args.seed), device)
     eng = ServeEngine(cfg, params, EngineConfig(max_batch=args.max_batch, device=device))
@@ -54,10 +63,14 @@ def build_engine(args: argparse.Namespace) -> ServeEngine:
     return eng
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
-    eng = build_engine(args)
+def _sync(eng: ServeEngine) -> None:
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
 
+
+def run(eng: ServeEngine, args: argparse.Namespace) -> dict:
+    """Drain ``eng`` and return the report: throughput, the arena's memory
+    behaviour and the replay of its allocation trace."""
     t0 = time.time()
     steps = 0
     while eng.waiting or eng.running:
@@ -65,8 +78,7 @@ def main(argv=None) -> dict:
         steps += 1
         if steps > 10_000:
             raise RuntimeError("engine did not drain")
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
+    _sync(eng)
     wall = time.time() - t0
 
     report = eng.memory_report()
@@ -79,7 +91,7 @@ def main(argv=None) -> dict:
             "peak_reserved_mb": round(r.stats.peak_reserved / 2**20, 1),
             "oom": r.oom,
         }
-    out = {
+    return {
         "arch": eng.cfg.name,
         "device": str(eng.device),
         "requests": args.requests,
@@ -90,6 +102,16 @@ def main(argv=None) -> dict:
                   for k, v in report.items()},
         "trace_replay": replay,
     }
+
+
+def main(argv=None) -> dict:
+    """Build, serve, print and return the report, with the engine's build
+    time (weights included) as ``init_s``."""
+    args = parse_args(argv)
+    t0 = time.time()
+    eng = build_engine(args)
+    _sync(eng)
+    out = {"init_s": round(time.time() - t0, 3), **run(eng, args)}
     print(json.dumps(out, indent=2, default=str))
     return out
 

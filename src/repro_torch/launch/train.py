@@ -27,6 +27,7 @@ from ..configs import get_arch
 from ..data.pipeline import DataConfig, SyntheticTokens
 from ..device import resolve_device
 from ..ft.supervisor import Supervisor, SupervisorConfig
+from ..models.api import family_of
 from ..train import optimizer as opt
 from ..train.step import TrainState, init_state, make_train_step
 
@@ -67,8 +68,9 @@ def run(args: argparse.Namespace,
     adamw = opt.AdamWConfig(lr=args.lr)
     state = init_state(cfg, adamw, torch.Generator().manual_seed(args.seed), device)
     step_fn = make_train_step(cfg, adamw, microbatches=args.microbatches)
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                      global_batch=args.batch, seed=args.seed), device)
+    data = SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
+        patch_dim=cfg.d_model if family_of(cfg).name == "vlm" else None), device)
     ckpt = ckpt or CheckpointManager(args.ckpt_dir)
     sup = Supervisor(step_fn, data.batch_at, ckpt,
                      SupervisorConfig(checkpoint_every=args.ckpt_every), device=device)

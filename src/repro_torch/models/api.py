@@ -1,8 +1,10 @@
 """Uniform model API: each family exposes the same entry points.
 
 Counterpart of ``repro.models.api``; the launchers, the train step and the
-serving engine go through ``family_of(cfg)``. Only the dense family is
-ported so far, and ``param_axes`` waits for the parallelism port.
+serving engine go through ``family_of(cfg)``. The dense, moe and vlm
+families are ported; the hybrid (zamba2), ssm (rwkv6) and audio (whisper)
+families wait for later slices, and ``param_axes`` for the parallelism
+port.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict
 
-from . import transformer
+from . import moe, paligemma, transformer
 
 
 @dataclass(frozen=True)
@@ -28,10 +30,21 @@ FAMILIES: Dict[str, Family] = {
         "dense", transformer.init_params, transformer.loss_fn, transformer.prefill,
         transformer.decode_step, transformer.init_cache,
     ),
+    "moe": Family(
+        "moe", moe.init_params, moe.loss_fn, moe.prefill, moe.decode_step, moe.init_cache,
+    ),
+    "vlm": Family(
+        "vlm", paligemma.init_params, paligemma.loss_fn, paligemma.prefill,
+        paligemma.decode_step, paligemma.init_cache,
+    ),
 }
 
 
 def family_of(cfg) -> Family:
+    if isinstance(cfg, paligemma.PaliGemmaConfig):
+        return FAMILIES["vlm"]
+    if isinstance(cfg, moe.MoEConfig):
+        return FAMILIES["moe"]
     if isinstance(cfg, transformer.TransformerConfig):
         return FAMILIES["dense"]
     raise TypeError(f"unknown model config type {type(cfg)}")

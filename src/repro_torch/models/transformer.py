@@ -38,6 +38,7 @@ class TransformerConfig:
     window: Optional[int] = None  # sliding-window attention
     tie_embeddings: bool = True
     embed_scale: bool = False  # gemma-style sqrt(d) embedding multiplier
+    prefix_lm: bool = False  # bidirectional prefix (paligemma)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True  # recompute each layer's activations in the backward pass
 
@@ -87,7 +88,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random weights from ``generator`` (a CPU generator: the same seed
     gives the same weights on every device), moved to ``device``."""
     dev = resolve_device(device)
-    d, h, kv, dh, f, n = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh, cfg.d_ff, cfg.n_layers
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
 
     def w(shape, in_axis):
         return L.dense_init(generator, shape, in_axis=in_axis, dtype=cfg.dtype)
@@ -95,6 +96,14 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     mlp = {"wi": w((n, d, f), 1), "wo": w((n, f, d), 1)}
     if cfg.gated:
         mlp["wg"] = w((n, d, f), 1)
+    return _to_device(init_tree(cfg, w, mlp), dev)
+
+
+def init_tree(cfg: TransformerConfig, w, mlp: Dict) -> Dict:
+    """The param tree around the feed-forward leaves ``mlp``: embedding,
+    norms, attention and the untied head, drawn by ``w(shape, in_axis)`` in
+    that order."""
+    d, h, kv, dh, n = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh, cfg.n_layers
     params = {
         "embed": w((cfg.vocab, d), 1),
         "layers": {
@@ -112,7 +121,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = w((d, cfg.vocab), 0)
-    return _to_device(params, dev)
+    return params
 
 
 def params_from_jax_numpy(cfg: TransformerConfig, tree: Dict,
@@ -158,13 +167,20 @@ def _qkv(cfg, p, x, positions):
     return q, k, v
 
 
-def _block(cfg, lp, x, positions, prefix_len):
+def _attn_block(cfg, p, x, positions, prefix_len):
+    """Self-attention of normed input x (B, S, d) -> (out (B, S, d), (k, v));
+    shared by the dense and MoE blocks."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions)
+    q, k, v = _qkv(cfg, p, x, positions)
     o = L.flash_attention(q, k, v, causal=True, window=cfg.window, prefix_len=prefix_len)
-    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+
+
+def _block(cfg, lp, x, positions, prefix_len):
+    a, kv = _attn_block(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions, prefix_len)
+    x = x + a
     m = L.mlp_apply(lp["mlp"], _apply_norm(cfg, lp["ln2"], x), cfg.act, cfg.gated)
-    return x + m, (k, v)
+    return x + m, kv
 
 
 def forward(cfg: TransformerConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -242,18 +258,32 @@ def prefill(cfg, params, batch, cache):
     tokens = batch["tokens"]  # (B, S_prompt)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    h, (k, v) = forward(cfg, params, x, _positions(b, s, tokens.device),
-                        prefix_len=batch.get("prefix_len"), collect_kv=True)
+    h, kvs = forward(cfg, params, x, _positions(b, s, tokens.device),
+                     prefix_len=batch.get("prefix_len"), collect_kv=True)
+    return logits_from_hidden(cfg, params, h[:, -1:]), fill_cache(cache, kvs, s)
+
+
+def fill_cache(cache, kvs, s: int):
+    """Write a prompt's stacked (k, v) (L, B, S, KVH, Dh) at positions
+    0..s-1 of the cache, in place, and set every length to ``s``."""
+    k, v = kvs
     cache["k"][:, :, :s] = k
     cache["v"][:, :, :s] = v
     cache["length"].fill_(s)
-    return logits_from_hidden(cfg, params, h[:, -1:]), cache
+    return cache
 
 
 @torch.no_grad()
 def decode_step(cfg, params, cache, tokens):
     """One token per sequence through the dense KV cache (updated in place).
     tokens: (B,) -> logits (B, V), cache."""
+    return decode_layers(cfg, params, cache, tokens,
+                         lambda lp, h: L.mlp_apply(lp["mlp"], h, cfg.act, cfg.gated))
+
+
+def decode_layers(cfg, params, cache, tokens, ffn):
+    """The decode step with ``ffn(layer params, normed h) -> (B, 1, d)`` as
+    each layer's feed-forward half (the dense MLP, or the MoE layer)."""
     b = tokens.shape[0]
     lengths = cache["length"]  # (B,)
     x = embed_tokens(cfg, params, tokens[:, None])  # (B, 1, d)
@@ -267,7 +297,7 @@ def decode_step(cfg, params, cache, tokens):
         vc[rows, positions[:, 0]] = v[:, 0].to(vc.dtype)
         o = L.decode_attention_dense(q, kc, vc, lengths + 1, window=cfg.window)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
-        x = x + L.mlp_apply(lp["mlp"], _apply_norm(cfg, lp["ln2"], x), cfg.act, cfg.gated)
+        x = x + ffn(lp, _apply_norm(cfg, lp["ln2"], x))
     h = _apply_norm(cfg, params["final_norm"], x)
     cache["length"] = lengths + 1
     return logits_from_hidden(cfg, params, h)[:, 0], cache

@@ -37,5 +37,9 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.ft.supervisor", "repro_torch.launch.train",
                  "repro_torch.core.offload", "repro_torch.serve.killrecover",
                  "repro_torch.chaos.campaign", "repro_torch.alloc.hybrid",
-                 "repro_torch.serve.simulate"):
+                 "repro_torch.serve.simulate", "repro_torch.models.moe",
+                 "repro_torch.models.paligemma", "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.grok1_314b", "repro_torch.configs.paligemma_3b",
+                 "repro_torch.configs.h2o_danube3_4b", "repro_torch.configs.internlm2_20b",
+                 "repro_torch.configs.starcoder2_15b"):
         assert name in result["imported"]
