@@ -18,8 +18,8 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    new lengths before each replay, and replays of a graph captured before
    a larger call grew the kernel's workspace; and at the KV geometries of
    the newer architectures (``NEW_GEOMETRIES``: dbrx/grok/internlm2,
-   starcoder2, danube3, paligemma), bf16 through ``arena_view`` of 2 MiB
-   chunks, lengths at tile and chunk edges;
+   starcoder2, danube3, paligemma, zamba2, whisper), bf16 through
+   ``arena_view`` of 2 MiB chunks, lengths at tile and chunk edges;
 3. serve smollm-135m at full width through ``repro_torch.launch.serve``;
 4. the lake: write a mid-run engine's dense K/V into its own stitched KV
    cache, compare stitched decode attention (the kernel) with the dense
@@ -85,15 +85,36 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    dbrx, grok and paligemma card vs CPU through prefill and 4 decode steps
    (logits within 1e-4, argmax equal), and paligemma-3b at full width cut
    to 2 layers (256 patches + 16 tokens, 8 decode steps, finite logits) with
-   its stitched attention held to the dense path; phase 8's wall time.
+   its stitched attention held to the dense path; phase 8's wall time;
+9. the hybrid, ssm and audio families: (a) the smoke configs of zamba2,
+   rwkv6 and whisper card vs CPU in float32 through prefill of 2 x 32
+   positions (whisper beside 16 frames) and 4 decode steps (logits within
+   1e-4 of each row's largest value, argmax equal), then 10 training steps
+   each (losses within ``TRAIN_LOSS_RTOL``); (b) one full-width layer of
+   each new mixer card vs CPU in float32 on 2 x 128 seeded inputs and 4
+   single-token steps (zamba2's mamba2 mixer, rwkv6's time- and
+   channel-mix, a whisper decoder layer over 1500 frames), every output and
+   state within 1e-4 of each row's largest value; (c) zamba2-1.2b,
+   rwkv6-7b and whisper-medium at full width and depth in bf16: prefill,
+   16 decode steps, finite logits, init and prefill seconds, steady decode
+   ms/step beside its byte bound, peak memory; (d) on 9c's caches, zamba2's
+   and whisper's self-K/V through a stitched KV cache (stitched vs dense
+   attention on every application or layer) and rwkv6-7b's WKV state
+   through the offload arena (bit-exact, every scatter and gather equal to
+   its plain version, then 4 decode steps from it equal bit for bit to
+   those from the state that never left), with launch counts zeroed before
+   (c) and all > 0 after (d); (e) zamba2-1.2b and whisper-medium trained 5
+   steps at full width through ``repro_torch.launch.train`` (finite
+   losses, no restart, ms/step and peak memory); phase 9's wall time.
 
 Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
 is each kernel's count on the serving path, phases 3-4, whose shapes phase
 5 times; ``launches_by_path`` has it beside the training path's, phase 6,
-the kill/recover path's, phase 7, the MoE serving path's, 8a-b, and
-8d's), a ``{"kill_recover": {...}}`` and a ``{"moe": {...}}`` line, then
-the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+the kill/recover path's, phase 7, the MoE serving path's, 8a-b, 8d's, and
+the new families', 9c-d), a ``{"kill_recover": {...}}``, a ``{"moe":
+{...}}`` and a ``{"new_families": {...}}`` line, then the ``nvidia-smi``
+line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
 """
@@ -143,9 +164,11 @@ TRAIN_LOSS_RTOL_BF16 = 2.0**-8  # card vs CPU, bf16 smoke config: one bf16 round
 PARITY_STEPS = 10
 #: phase 2's KV geometries of the newer architectures, bf16 in 2 MiB
 #: chunks: (name, H, KVH, D); T_c 1024, 2048, 1092 (512 B left over in a
-#: chunk) and 4096 tokens
+#: chunk), 4096, and for zamba2's shared block and whisper's decoder one
+#: query head a kv head (G = 1) at T_c 512 and 1024
 NEW_GEOMETRIES = [("dbrx/grok/internlm2", 48, 8, 128), ("starcoder2", 48, 4, 128),
-                  ("danube3", 32, 8, 120), ("paligemma", 8, 1, 256)]
+                  ("danube3", 32, 8, 120), ("paligemma", 8, 1, 256),
+                  ("zamba2", 32, 32, 64), ("whisper", 16, 16, 64)]
 #: phase 8a: dbrx-132b at full width cut to this depth (2 layers hold 6.34 B
 #: expert parameters, 12.7 GB in bf16), serving phase 3's workload
 DBRX_LAYERS = 2
@@ -166,6 +189,27 @@ FAMILY_RTOL = 1e-4
 #: phase 8d: paligemma-3b at full width cut to 2 layers, 2 sequences of 256
 #: patches + 16 tokens, then 8 decode steps
 PALI_LAYERS, PALI_BATCH, PALI_TEXT, PALI_DECODE = 2, 2, 16, 8
+#: phase 9: the hybrid, ssm and audio families
+NEW_FAMILY_ARCHS = ("zamba2-1.2b", "rwkv6-7b", "whisper-medium")
+#: 9a: prompt positions of the smoke configs, so zamba2's and rwkv6's chunk-8
+#: scans run whole chunks; the audio family's seeded frames a sequence
+NEW_SMOKE_POS, SMOKE_FRAMES = 32, 16
+#: 9b: one full-width layer on 2 sequences of this many seeded positions,
+#: then this many single-token steps; whisper's cross-attention over
+#: FULL_FRAMES frames
+LAYER_POS, LAYER_STEPS, FULL_FRAMES = 128, 4, 1500
+#: 9c: full width and depth, bf16: 2 sequences of prompt tokens (whisper's
+#: text tokens, beside FULL_FRAMES frames), then FULL_DECODE decode steps
+FULL_BATCH, FULL_DECODE = 2, 16
+FULL_PROMPT = {"zamba2-1.2b": 512, "rwkv6-7b": 512, "whisper-medium": 64}
+#: 9d: decode steps from rwkv6's state fetched back from the offload arena
+STATE_DECODE = 4
+#: 9e: full-width training through the launcher (rwkv6-7b does not fit one
+#: card: its f32 AdamW moments alone are 56 GB beside 14 GB of weights and
+#: 14 GB of gradients)
+NEW_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium")
+NEW_TRAIN_ARGS = ["--steps", "5", "--batch", "8", "--seq", "256", "--seed", "0",
+                  "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -714,41 +758,51 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
-def train_parity() -> dict:
-    """6a: the smoke config's loss curve on the card against the CPU port's
-    (the CPU tests hold the CPU port against JAX), in float32 and in the
-    full config's working types (bf16, remat on). Returns the largest
-    relative difference of each."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
+def loss_curves(cfg, rtol: float, what: str) -> float:
+    """``PARITY_STEPS`` training steps of ``cfg`` on the CPU and on the card
+    from the same seed and batches (the audio family's with frames): each
+    loss within ``rtol`` of the CPU port's (the CPU tests hold the CPU port
+    against JAX). Returns the largest relative difference."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.api import family_of
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import init_state, make_train_step
 
-    smoke = get_arch("smollm-135m").smoke
     adamw = opt.AdamWConfig()
-    rels = {}
-    for name, cfg, rtol in (
-            ("float32", smoke, TRAIN_LOSS_RTOL),
-            ("bfloat16", dataclasses.replace(smoke, dtype=torch.bfloat16, remat=True),
-             TRAIN_LOSS_RTOL_BF16)):
-        curves = {}
-        for dev in ("cpu", DEVICE):
-            state = init_state(cfg, adamw, torch.Generator().manual_seed(0), dev)
-            step = make_train_step(cfg, adamw)
-            data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), dev)
-            curves[dev] = []
-            for i in range(PARITY_STEPS):
-                state, m = step(state, data.batch_at(i))
-                curves[dev].append(float(m["loss"]))
-        cpu, card = np.array(curves["cpu"]), np.array(curves[DEVICE])
-        rels[name] = rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
-        assert rel <= rtol, (name, curves, rel)
-        log(f"phase 6a: {name} smoke-config loss on the card matches the CPU port over "
-            f"{PARITY_STEPS} steps ({card[0]:.6f} -> {card[-1]:.6f}), max relative "
-            f"difference {rel:.3g} (limit {rtol:.3g})")
-    return rels
+    frame_dim = cfg.d_model if family_of(cfg).name == "audio" else None
+    curves = {}
+    for dev in ("cpu", DEVICE):
+        state = init_state(cfg, adamw, torch.Generator().manual_seed(0), dev)
+        step = make_train_step(cfg, adamw)
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                                          frame_dim=frame_dim), dev)
+        curves[dev] = []
+        for i in range(PARITY_STEPS):
+            state, m = step(state, data.batch_at(i))
+            curves[dev].append(float(m["loss"]))
+    cpu, card = np.array(curves["cpu"]), np.array(curves[DEVICE])
+    rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    assert rel <= rtol, (what, curves, rel)
+    log(f"{what} loss on the card matches the CPU port over {PARITY_STEPS} steps "
+        f"({card[0]:.6f} -> {card[-1]:.6f}), max relative difference {rel:.3g} (limit "
+        f"{rtol:.3g})")
+    return rel
+
+
+def train_parity() -> dict:
+    """6a: the smoke config's loss curve on the card against the CPU port's,
+    in float32 and in the full config's working types (bf16, remat on).
+    Returns the largest relative difference of each."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    smoke = get_arch("smollm-135m").smoke
+    return {
+        "float32": loss_curves(smoke, TRAIN_LOSS_RTOL, "phase 6a: float32 smoke-config"),
+        "bfloat16": loss_curves(dataclasses.replace(smoke, dtype=torch.bfloat16, remat=True),
+                                TRAIN_LOSS_RTOL_BF16, "phase 6a: bfloat16 smoke-config"),
+    }
 
 
 def supervised_training(workdir: Path, card: str):
@@ -852,73 +906,74 @@ def supervised_training(workdir: Path, card: str):
     return result, state, timing
 
 
-def offload_moments(state) -> dict:
-    """6c: the trained f32 first moments through host offload on an f32
-    arena on the card (put, spill, fetch, get), bit-exact, arena empty at
-    the end. Every kernel launch of the path is held bit for bit to its
-    plain version on the same inputs, at the path's own chunk maps: after
-    each store (put, fetch) the whole arena against ``stitch_scatter_ref``
-    applied to a copy of the arena from before it, and each load (spill,
-    get) against ``stitch_gather_ref`` of the arena it read."""
+def offload_roundtrip(tensors: dict, what: str):
+    """Float32 tensors through host offload on an f32 arena on the card
+    (put, spill, fetch, get), bit-exact, arena empty at the end. Every
+    kernel launch of the path is held bit for bit to its plain version on
+    the same inputs, at the path's own chunk maps: after each store (put,
+    fetch) the whole arena against ``stitch_scatter_ref`` applied to a copy
+    of the arena from before it, and each load (spill, get) against
+    ``stitch_gather_ref`` of the arena it read. Returns (summary, the
+    tensors ``get`` gave back)."""
     from repro_torch.alloc import CHUNK_SIZE
     from repro_torch.core.arena import Arena, ArenaConfig
     from repro_torch.core.offload import OffloadManager
     from repro_torch.kernels import ref
-    from repro_torch.tree import flatten_with_path
 
-    mu = dict(flatten_with_path(state.opt.mu))
-    assert all(t.dtype == torch.float32 for t in mu.values())
-    chunks = sum(-(-t.numel() * 4 // CHUNK_SIZE) for t in mu.values())
+    assert all(t.dtype == torch.float32 for t in tensors.values())
+    chunks = sum(-(-t.numel() * 4 // CHUNK_SIZE) for t in tensors.values())
     arena = Arena(ArenaConfig(n_chunks=chunks + 8, dtype=torch.float32, device=DEVICE))
     ce = arena.config.chunk_elems
     om = OffloadManager(arena)
 
     def chunk_map(name):
-        return arena.chunk_map(om._device[name].alloc)[:-(-mu[name].numel() // ce)]
+        return arena.chunk_map(om._device[name].alloc)[:-(-tensors[name].numel() // ce)]
 
     def stored(name, before):
-        """The arena after storing ``mu[name]`` equals the plain scatter."""
+        """The arena after storing ``tensors[name]`` equals the plain scatter."""
         cmap = chunk_map(name)
         values = torch.zeros((cmap.numel(), ce), dtype=torch.float32, device=DEVICE)
-        values.view(-1)[:mu[name].numel()] = mu[name].reshape(-1)
+        values.view(-1)[:tensors[name].numel()] = tensors[name].reshape(-1)
         assert same_bits(arena.buf, ref.stitch_scatter_ref(before, cmap, values)), name
 
     def gathered(name):
-        """The plain gather of ``mu[name]`` from the arena as it stands."""
-        t = mu[name]
+        """The plain gather of ``tensors[name]`` from the arena as it stands."""
+        t = tensors[name]
         return ref.stitch_gather_ref(arena.buf, chunk_map(name)).reshape(-1)[:t.numel()] \
             .reshape(t.shape)
 
     maps = []
-    for name, t in mu.items():
+    for name, t in tensors.items():
         before = arena.buf.clone()
         om.put(name, t)
         stored(name, before)
         maps.append(chunk_map(name).numel())
-    for name in mu:
+    for name in tensors:
         want = gathered(name)
         om.spill(name)
         assert same_bits(om._host[name], want.cpu()), name
-    assert arena.active_bytes == 0 and not any(om.is_resident(n) for n in mu)
-    for name in mu:
+    assert arena.active_bytes == 0 and not any(om.is_resident(n) for n in tensors)
+    for name in tensors:
         before = arena.buf.clone()
         om.fetch(name)
         stored(name, before)
     del before
-    for name, t in mu.items():
+    back = {}
+    for name, t in tensors.items():
         want = gathered(name)
-        back = om.get(name)
-        assert back.device == t.device and same_bits(back, want) and same_bits(back, t), name
-    nbytes = sum(t.numel() * 4 for t in mu.values())
-    for name in mu:
+        back[name] = om.get(name)
+        assert back[name].device == t.device and same_bits(back[name], want) \
+            and same_bits(back[name], t), name
+    nbytes = sum(t.numel() * 4 for t in tensors.values())
+    for name in tensors:
         om.drop(name)
     assert arena.active_bytes == 0 and om.names() == set()
     torch.cuda.synchronize()
-    log(f"phase 6c: {len(mu)} f32 moment leaves ({nbytes / 1e6:.1f} MB, chunk maps of "
+    log(f"{what} ({len(tensors)} f32 tensors, {nbytes / 1e6:.1f} MB, chunk maps of "
         f"{min(maps)}-{max(maps)} chunks) put, spilled, fetched and read back bit-exact "
         f"through a {chunks + 8}-chunk arena, every store and load equal bit for bit to "
         f"the plain scatter and gather; active bytes 0 after drop")
-    return dict(leaves=len(mu), bytes=nbytes, chunks_per_leaf=[min(maps), max(maps)])
+    return dict(leaves=len(tensors), bytes=nbytes, chunks_per_leaf=[min(maps), max(maps)]), back
 
 
 def train_path(card: str) -> dict:
@@ -932,7 +987,10 @@ def train_path(card: str) -> dict:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir, prefix="ckpt-") as workdir:
         result, state, timing = supervised_training(Path(workdir), card)
-    offload = offload_moments(state)
+    from repro_torch.tree import flatten_with_path
+
+    offload, _ = offload_roundtrip(dict(flatten_with_path(state.opt.mu)),
+                                   "phase 6c: the trained first moments")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"phase 6: kernel launches on the training path {counts}")
@@ -1337,35 +1395,55 @@ def moe_layer(params, cfg) -> dict:
                 out_rel=rel, aux=a_c, aux_rel=aux_rel, card_s=s_card, cpu_s=s_cpu)
 
 
-def family_batch(cfg, rng, n_batch: int, n_text: int, device) -> dict:
-    """Seeded prompt tokens, and for the vlm family patch embeddings."""
+def family_batch(cfg, rng, n_batch: int, n_text: int, device,
+                 n_frames: int = None) -> dict:
+    """Seeded prompt tokens; for the vlm family patch embeddings, for the
+    audio family ``n_frames`` frame embeddings (``SMOKE_FRAMES`` by
+    default)."""
+    from repro_torch.models.api import family_of
+
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, size=(n_batch, n_text)).astype(np.int32))}
     if hasattr(cfg, "n_patches"):
         batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (n_batch, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if family_of(cfg).name == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (n_batch, n_frames or SMOKE_FRAMES, cfg.d_model)).astype(np.float32))
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def family_smoke() -> dict:
-    """8d: each newer architecture's smoke config (float32) on the card and
-    on the CPU from the same seeded weights: prefill of 2 x 31 positions,
-    then ``FAMILY_DECODE_STEPS`` decode steps; logits within ``FAMILY_RTOL``
-    of each row's largest value and the same argmax."""
+def family_cache(cfg, batch: dict, max_len: int, device) -> dict:
+    """The family's empty cache for ``batch`` (the audio family's also sized
+    to the batch's frames)."""
+    from repro_torch.models.api import family_of
+
+    fam = family_of(cfg)
+    n = batch["tokens"].shape[0]
+    if fam.name == "audio":
+        return fam.init_cache(cfg, n, max_len, batch["frames"].shape[1], device)
+    return fam.init_cache(cfg, n, max_len, device)
+
+
+def family_smoke(archs, n_pos: int, what: str) -> dict:
+    """Each architecture's smoke config (float32) on the card and on the CPU
+    from the same seeded weights: prefill of 2 x ``n_pos`` positions (the
+    vlm family's patches counted, the audio family beside its frames), then
+    ``FAMILY_DECODE_STEPS`` decode steps; logits within ``FAMILY_RTOL`` of
+    each row's largest value and the same argmax."""
     from repro_torch.configs import get_arch
     from repro_torch.models.api import family_of
 
     rows = {}
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         cfg = get_arch(arch).smoke
         fam = family_of(cfg)
         logits = {}
         for dev in (DEVICE, "cpu"):
             rng = np.random.default_rng(8)
             params = fam.init_params(cfg, torch.Generator().manual_seed(0), dev)
-            n_text = 31 - getattr(cfg, "n_patches", 0)
-            out, cache = fam.prefill(cfg, params, family_batch(cfg, rng, 2, n_text, dev),
-                                     fam.init_cache(cfg, 2, 40, dev))
+            batch = family_batch(cfg, rng, 2, n_pos - getattr(cfg, "n_patches", 0), dev)
+            out, cache = fam.prefill(cfg, params, batch, family_cache(cfg, batch, 40, dev))
             seq = [out[:, -1]]
             for _ in range(FAMILY_DECODE_STEPS):
                 nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2,)).astype(np.int32))
@@ -1376,10 +1454,42 @@ def family_smoke() -> dict:
         assert rel <= FAMILY_RTOL, (arch, rel)
         assert torch.equal(logits[DEVICE].argmax(-1), logits["cpu"].argmax(-1)), arch
         rows[arch] = dict(family=fam.name, rel=rel)
-    log(f"phase 8d: smoke configs, prefill + {FAMILY_DECODE_STEPS} decode steps, card vs CPU "
-        f"in float32, logits within {FAMILY_RTOL} of each row's largest value and argmax "
-        f"equal: {rows}")
+    log(f"{what}: smoke configs, prefill of 2 x {n_pos} positions + {FAMILY_DECODE_STEPS} decode "
+        f"steps, card vs CPU in float32, logits within {FAMILY_RTOL} of each row's largest "
+        f"value and argmax equal: {rows}")
     return rows
+
+
+def stitched_vs_dense(k_all: torch.Tensor, v_all: torch.Tensor, n: int, n_heads: int, rng,
+                      what: str):
+    """Write each layer's dense K/V ``(L, B, S, KVH, D)`` (the first ``n``
+    tokens of every sequence) into a ``StitchedKVCache`` at its geometry and
+    hold stitched decode attention (the kernel) to ``decode_attention_dense``
+    on every layer, row-scaled (``attn_close``). Returns (max abs error,
+    chunk tokens)."""
+    from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
+    from repro_torch.models.layers import decode_attention_dense
+
+    import dataclasses
+
+    n_layers, b, _, n_kv, dh = k_all.shape
+    kcfg = KVCacheConfig(n_layers=n_layers, n_kv=n_kv, head_dim=dh, dtype=k_all.dtype,
+                         device=DEVICE)
+    per_seq = -(-n // kcfg.chunk_tokens)
+    kv = StitchedKVCache(dataclasses.replace(kcfg, n_chunks=n_layers * b * 2 * per_seq + 8))
+    rids = list(range(b))
+    for rid in rids:
+        kv.add_sequence(rid, n)
+    q = rand(rng, (b, n_heads, dh), k_all.dtype)
+    err = 0.0
+    for layer in range(n_layers):
+        for rid in rids:
+            kv.write_tokens(rid, layer, "k", 0, k_all[layer, rid, :n])
+            kv.write_tokens(rid, layer, "v", 0, v_all[layer, rid, :n])
+        got = kv.decode_attention(rids, layer, q)
+        want = decode_attention_dense(q[:, None], k_all[layer], v_all[layer], ints([n] * b))[:, 0]
+        err = max(err, attn_close(got, want, (what, layer)))
+    return err, kv.config.chunk_tokens
 
 
 def paligemma_full(rng, card: str) -> dict:
@@ -1392,9 +1502,7 @@ def paligemma_full(rng, card: str) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_arch
-    from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
     from repro_torch.models import paligemma
-    from repro_torch.models.layers import decode_attention_dense
 
     cfg = dataclasses.replace(get_arch("paligemma-3b").full, n_layers=PALI_LAYERS)
     t0 = time.perf_counter()
@@ -1414,29 +1522,15 @@ def paligemma_full(rng, card: str) -> dict:
     run_s = sync_s(t0)
     assert finite and cache["length"].tolist() == [n] * PALI_BATCH, cache["length"]
 
-    kv = StitchedKVCache(KVCacheConfig(n_layers=cfg.n_layers, n_kv=cfg.n_kv, head_dim=cfg.dh,
-                                       dtype=cfg.dtype, n_chunks=16, device=DEVICE))
-    rids = list(range(PALI_BATCH))
-    for rid in rids:
-        kv.add_sequence(rid, n)
-    err = 0.0
-    q = rand(rng, (PALI_BATCH, cfg.n_heads, cfg.dh), cfg.dtype)
-    for layer in range(cfg.n_layers):
-        for rid in rids:
-            kv.write_tokens(rid, layer, "k", 0, cache["k"][layer, rid, :n])
-            kv.write_tokens(rid, layer, "v", 0, cache["v"][layer, rid, :n])
-        got = kv.decode_attention(rids, layer, q)
-        want = decode_attention_dense(q[:, None], cache["k"][layer], cache["v"][layer],
-                                      ints([n] * PALI_BATCH))[:, 0]
-        err = max(err, attn_close(got, want, ("paligemma lake", layer)))
+    err, chunk_tokens = stitched_vs_dense(cache["k"], cache["v"], n, cfg.n_heads, rng,
+                                          "paligemma lake")
     log(f"phase 8d: {cfg.name} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.dh}, vocab {cfg.vocab}, bf16) on {card}: "
         f"init {init_s} s; prefill of {PALI_BATCH} x ({cfg.n_patches} patches + {PALI_TEXT} "
         f"tokens) and {PALI_DECODE} decode steps in {run_s} s, every logit finite; stitched "
         f"attention == dense on {cfg.n_layers} layers (chunk_tokens "
-        f"{kv.config.chunk_tokens}), max abs err {err:.3g}")
-    return dict(init_s=init_s, run_s=run_s, tokens=n, attn_err=err,
-                chunk_tokens=kv.config.chunk_tokens)
+        f"{chunk_tokens}), max abs err {err:.3g}")
+    return dict(init_s=init_s, run_s=run_s, tokens=n, attn_err=err, chunk_tokens=chunk_tokens)
 
 
 def moe_path(card: str, rng) -> dict:
@@ -1473,7 +1567,7 @@ def moe_path(card: str, rng) -> dict:
     del params
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    smoke = family_smoke()
+    smoke = family_smoke(FAMILY_ARCHS, 31, "phase 8d")
     pali = paligemma_full(rng, card)
     torch.cuda.synchronize()
     fam_counts = ops.launch_counts()
@@ -1482,6 +1576,306 @@ def moe_path(card: str, rng) -> dict:
     log(f"phase 8: wall time {wall} s")
     return dict(counts=counts, family_counts=fam_counts, served=served, lake=lake_row,
                 layer=layer, smoke=smoke, paligemma=pali, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the hybrid, ssm and audio families
+# ---------------------------------------------------------------------------
+
+
+def new_family_smoke() -> dict:
+    """9a: the smoke configs card vs CPU in float32, prefill + decode, then
+    each trained ``PARITY_STEPS`` steps on both from the same seed and
+    batches (losses within ``TRAIN_LOSS_RTOL``)."""
+    from repro_torch.configs import get_arch
+
+    rows = family_smoke(NEW_FAMILY_ARCHS, NEW_SMOKE_POS, "phase 9a")
+    for arch in NEW_FAMILY_ARCHS:
+        rows[arch]["train_rel"] = loss_curves(get_arch(arch).smoke, TRAIN_LOSS_RTOL,
+                                              f"phase 9a: {arch} float32 smoke-config")
+    return rows
+
+
+def layer_config(arch: str):
+    """The full config cut to one layer (a stack each for whisper), float32,
+    with a 256-token vocabulary: the layer's widths are the full config's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).full
+    over = dict(n_layers=1, vocab=256, dtype=torch.float32, remat=False)
+    if hasattr(cfg, "max_positions"):
+        over["max_positions"] = 256
+    return dataclasses.replace(cfg, **over)
+
+
+def card_vs_cpu(run, what: str) -> float:
+    """``run(device)`` (a list of tensors) on the card and on the CPU: each
+    within ``FAMILY_RTOL`` of its last-axis rows' largest |value|. Returns
+    the worst share."""
+    with torch.no_grad():
+        card = [t.cpu() for t in run(DEVICE)]
+        cpu = run("cpu")
+    rel = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu, strict=True)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), (what, i)
+        rel = max(rel, rel_rows(a, b))
+    assert rel <= FAMILY_RTOL, (what, rel)
+    return rel
+
+
+def full_width_layers() -> dict:
+    """9b: one full-width layer of each new mixer, card vs CPU in float32 on
+    2 x ``LAYER_POS`` seeded inputs: zamba2's mamba2 mixer (output, final
+    SSM and conv state, then ``LAYER_STEPS`` decode steps from them);
+    rwkv6's time-mix and channel-mix (output, final WKV state, then
+    ``LAYER_STEPS`` single-token steps from it); one whisper decoder layer
+    (self-attention, cross-attention over ``FULL_FRAMES`` frames, MLP; its
+    self- and cross-K/V)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import rwkv6, whisper
+
+    rng = np.random.default_rng(11)
+
+    def seeded(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def on(tree, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    rows = {}
+    zcfg = layer_config("zamba2-1.2b").mamba
+    zp = {k: v[0] for k, v in M2.block_init(zcfg, torch.Generator().manual_seed(0), 1,
+                                            torch.float32, "cpu").items()}
+    x, xs = seeded(2, LAYER_POS, zcfg.d_model), seeded(LAYER_STEPS, 2, zcfg.d_model)
+
+    def mamba(dev):
+        p = on(zp, dev)
+        y, hs, conv = M2.apply_block_with_state(zcfg, p, x.to(dev))
+        out, st = [y, hs, conv], {"ssm": hs, "conv": conv}
+        for t in range(LAYER_STEPS):
+            o, st = M2.decode_block(zcfg, p, st, xs[t].to(dev))
+            out += [o, st["ssm"]]
+        return out
+
+    t0 = time.perf_counter()
+    rows["zamba2 mamba2 mixer"] = dict(rel=card_vs_cpu(mamba, "9b mamba2"),
+                                       heads=zcfg.n_heads, chunk=zcfg.chunk)
+    rcfg = layer_config("rwkv6-7b")
+    rp = rwkv6.init_params(rcfg, torch.Generator().manual_seed(0), "cpu")["layers"]
+    rp = {g: {k: v[0] for k, v in rp[g].items()} for g in ("tm", "cm")}
+    x, xs = seeded(2, LAYER_POS, rcfg.d_model), seeded(LAYER_STEPS, 2, rcfg.d_model)
+
+    def rwkv(dev):
+        tm, cm = on(rp["tm"], dev), on(rp["cm"], dev)
+        xd = x.to(dev)
+        y, S = rwkv6.time_mix_with_state(rcfg, tm, xd)
+        out, prev = [y, S, rwkv6.channel_mix(rcfg, cm, xd)], xd[:, -1]
+        for t in range(LAYER_STEPS):
+            xt = xs[t].to(dev)
+            o, S = rwkv6._tm_step(rcfg, tm, xt, prev, S)
+            out += [o, S, rwkv6._cm_step(rcfg, cm, xt, prev)]
+            prev = xt
+        return out
+
+    rows["rwkv6 time-mix + channel-mix"] = dict(rel=card_vs_cpu(rwkv, "9b rwkv6"),
+                                                heads=rcfg.n_heads, chunk=rcfg.chunk)
+    wcfg = layer_config("whisper-medium")
+    wp = whisper.init_params(wcfg, torch.Generator().manual_seed(0), "cpu")["decoder"]
+    wp = whisper._stack(wp, ("ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"), 1)[0]
+    x, memory = seeded(2, LAYER_POS, wcfg.d_model), seeded(2, FULL_FRAMES, wcfg.d_model)
+
+    def decoder_layer(dev):
+        h, (k, v), (xk, xv) = whisper._dec_layer(wcfg, on(wp, dev), x.to(dev), memory.to(dev))
+        return [h, k, v, xk, xv]
+
+    rows["whisper decoder layer"] = dict(rel=card_vs_cpu(decoder_layer, "9b whisper"),
+                                         frames=FULL_FRAMES)
+    log(f"phase 9b: one full-width layer of each new mixer on 2 x {LAYER_POS} seeded inputs "
+        f"(+ {LAYER_STEPS} steps), card vs CPU in float32, every output and state within "
+        f"{FAMILY_RTOL} of each row's largest value: {rows} ({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def decode_step_bytes(arch: str, cfg, params, cache, length: int) -> int:
+    """The bytes one decode step must move at ``length`` tokens: every
+    weight it reads once (an embedding used as the logits head whole, a
+    table only looked up by row not at all), the shared block once per
+    application (zamba2), the recurrent state read and written, and the
+    K/V a sequence has (self, and whisper's static cross-K/V) read once."""
+    from repro_torch.tree import leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    b = cache["length"].numel()
+    if arch == "zamba2-1.2b":
+        kv = 2 * cfg.n_apps * b * length * cfg.n_kv * cfg.dh * cfg.dtype.itemsize
+        return (nbytes(params) + (cfg.n_apps - 1) * nbytes(params["shared"])
+                + 2 * nbytes({k: cache[k] for k in ("ssm", "conv")}) + kv)
+    if arch == "rwkv6-7b":
+        return (nbytes(params) - nbytes(params["embed"])
+                + 2 * nbytes({k: cache[k] for k in ("wkv", "x_tm", "x_cm")}))
+    dec = params["decoder"]
+    kv = 2 * cfg.n_layers * b * length * cfg.n_kv * cfg.dh * cfg.dtype.itemsize
+    return nbytes(dec) - nbytes(dec["pos"]) + nbytes({k: cache[k] for k in ("xk", "xv")}) + kv
+
+
+def decode_from(arch, cfg, params, cache, tokens) -> torch.Tensor:
+    """``tokens`` (steps, B) decoded from ``cache`` (updated in place);
+    returns the stacked logits."""
+    from repro_torch.models.api import family_of
+
+    fam = family_of(cfg)
+    out = []
+    for tok in tokens:
+        logits, cache = fam.decode_step(cfg, params, cache, tok)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def full_width_family(arch: str, rng, card: str) -> dict:
+    """9c: ``arch`` at full width and depth in bf16: seeded weights, prefill
+    of ``FULL_BATCH`` sequences, ``FULL_DECODE`` greedy decode steps, every
+    logit finite and the lengths right; init and prefill seconds, steady
+    decode ms/step (host clock after synchronize, first step left out)
+    beside its byte bound, peak allocated. Then 9d on the same caches:
+    zamba2's and whisper's self-K/V through a stitched KV cache (kernel vs
+    dense on every application or layer); rwkv6's WKV state through the
+    offload arena and decoded ``STATE_DECODE`` steps from there and from the
+    state that never left, logits equal bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import family_of
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(arch).full
+    fam = family_of(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fam.init_params(cfg, torch.Generator().manual_seed(0), DEVICE)
+    init_s = sync_s(t0)
+    n_tok = FULL_PROMPT[arch]
+    batch = family_batch(cfg, np.random.default_rng(10), FULL_BATCH, n_tok, DEVICE,
+                         n_frames=FULL_FRAMES)
+    cache = family_cache(cfg, batch, n_tok + FULL_DECODE + STATE_DECODE, DEVICE)
+    t0 = time.perf_counter()
+    out, cache = fam.prefill(cfg, params, batch, cache)
+    prefill_s = sync_s(t0)
+    finite = bool(torch.isfinite(out).all())
+    tok = out[:, -1].argmax(-1).int()
+    step_s = []
+    for _ in range(FULL_DECODE):
+        t0 = time.perf_counter()
+        out, cache = fam.decode_step(cfg, params, cache, tok)
+        tok = out.argmax(-1).int()
+        finite &= bool(torch.isfinite(out).all())
+        step_s.append(time.perf_counter() - t0)
+    n = n_tok + FULL_DECODE
+    assert finite and cache["length"].tolist() == [n] * FULL_BATCH, (arch, cache["length"])
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    step_bytes = decode_step_bytes(arch, cfg, params, cache, n)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    row = dict(init_s=init_s, prefill_s=prefill_s, prompt=n_tok, decode_steps=FULL_DECODE,
+               decode_ms=step_ms, decode_bound_ms=bound_ms, step_bytes=step_bytes,
+               weight_bytes=weight_bytes,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    what = f"{arch} prompt {n_tok}" + (f" + {FULL_FRAMES} frames" if "frames" in batch else "")
+    log(f"phase 9c: {cfg.name} at full width and depth (bf16, {weight_bytes / 1e9:.2f} GB of "
+        f"weights) on {card}: init {init_s} s, prefill of {FULL_BATCH} x ({what}) "
+        f"{prefill_s} s, {FULL_DECODE} decode steps, every logit finite; steady decode "
+        f"{step_ms:.3f} ms/step against a {bound_ms:.3f} ms byte bound "
+        f"({step_bytes / 1e9:.3f} GB at 3.35 TB/s); peak allocated "
+        f"{row['peak_allocated_bytes'] / 2**30:.3f} GiB")
+
+    if arch == "rwkv6-7b":
+        summary, back = offload_roundtrip({"wkv": cache["wkv"]},
+                                          f"phase 9d: {arch}'s WKV state")
+        moved = dict(cache, wkv=back["wkv"])
+        kept = {k: v.clone() for k, v in cache.items()}
+        toks = ints(rng.integers(0, cfg.vocab, size=(STATE_DECODE, FULL_BATCH)))
+        a = decode_from(arch, cfg, params, moved, toks)
+        b = decode_from(arch, cfg, params, kept, toks)
+        assert same_bits(a, b), "decoding from the fetched state differs"
+        row["offload"] = summary
+        log(f"phase 9d: {STATE_DECODE} decode steps from the state fetched back equal bit for "
+            f"bit to those from the state that never left")
+    else:
+        err, chunk_tokens = stitched_vs_dense(cache["k"], cache["v"], n, cfg.n_heads, rng,
+                                              f"{arch} lake")
+        row.update(attn_err=err, chunk_tokens=chunk_tokens, kv_layers=cache["k"].shape[0])
+        log(f"phase 9d: {arch}'s self-attention K/V ({cache['k'].shape[0]} "
+            f"{'applications' if arch.startswith('zamba2') else 'layers'} x {FULL_BATCH} x "
+            f"{n} tokens, {cfg.n_heads}/{cfg.n_kv} heads of {cfg.dh}) through a stitched KV "
+            f"cache (chunk_tokens {chunk_tokens}): stitched attention == dense on each, max "
+            f"abs err {err:.3g}")
+    del params, cache
+    return row
+
+
+def train_new_families(card: str) -> dict:
+    """9e: zamba2-1.2b and whisper-medium at full width trained through
+    ``repro_torch.launch.train`` (bf16, remat on): every loss finite, no
+    restart; steady ms/step (host clock between steps, which end with the
+    loss read back; first step left out) and peak memory. rwkv6-7b is left
+    out (``NEW_TRAIN_ARCHS``)."""
+    from repro_torch.launch import train
+
+    rows = {}
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir, prefix="ckpt-9e-") as workdir:
+        for arch in NEW_TRAIN_ARCHS:
+            torch.cuda.empty_cache()
+            args = train.parse_args(["--arch", arch, *NEW_TRAIN_ARGS, "--ckpt-dir",
+                                     str(Path(workdir) / arch)])
+            stamps = []
+            result, state = train.run(args, fail_injector=lambda _: stamps.append(
+                time.perf_counter()))
+            stamps.append(time.perf_counter())
+            assert [e for e in result["events"] if e["kind"] != "straggler"] == [], \
+                result["events"]
+            losses = [h["loss"] for h in result["history"]]
+            assert len(losses) == args.steps and all(math.isfinite(x) for x in losses), losses
+            step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+            rows[arch] = dict(losses=losses, ms_per_step=statistics.median(step_ms[1:]),
+                              first_step_ms=step_ms[0], tokens_per_s=result["tokens_per_s"],
+                              peak_allocated_bytes=result["peak_allocated_bytes"],
+                              peak_reserved_bytes=result["peak_reserved_bytes"])
+            log(f"phase 9e: {arch} at full width (bf16, remat on, batch {args.batch}, seq "
+                f"{args.seq}) on {card}: {args.steps} supervised steps, no restart, losses "
+                f"{[round(x, 4) for x in losses]}, {rows[arch]['ms_per_step']:.1f} ms/step "
+                f"(first {step_ms[0]:.1f}), peak allocated "
+                f"{result['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
+                f"{result['peak_reserved_bytes'] / 2**30:.3f} GiB")
+            del state
+    log("phase 9e: rwkv6-7b is not trained: its f32 AdamW moments (56 GB), bf16 weights "
+        "(14 GB) and gradients (14 GB) exceed the card's 80 GB")
+    return rows
+
+
+def new_families(card: str, rng) -> dict:
+    """Phase 9. 9a-9b use no kernel; the launch counts are zeroed before 9c
+    and read after 9d, and every kernel must have launched."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    smoke = new_family_smoke()
+    layers = full_width_layers()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    full = {arch: full_width_family(arch, rng, card) for arch in NEW_FAMILY_ARCHS}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"phase 9d: kernel launches on the new families' path {counts}")
+    assert all(n > 0 for n in counts.values()), counts
+    trained = train_new_families(card)
+    wall = round(time.perf_counter() - t_phase, 3)
+    log(f"phase 9: wall time {wall} s")
+    return dict(counts=counts, smoke=smoke, layers=layers, full=full, train=trained,
+                wall_s=wall)
 
 
 def main() -> int:
@@ -1535,18 +1929,22 @@ def main() -> int:
     trained = train_path(card)
     kr = kill_recover(card, rng)
     moe = moe_path(card, rng)
+    fams = new_families(card, rng)
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
                                    "kill_recover": kr["counts"][row["name"]],
                                    "moe": moe["counts"][row["name"]],
-                                   "families": moe["family_counts"][row["name"]]}
+                                   "families": moe["family_counts"][row["name"]],
+                                   "new_families": fams["counts"][row["name"]]}
     print(json.dumps({"attention_shapes": shapes, "new_geometries": geometries}))
     print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kill_recover": {k: v for k, v in kr.items() if k != "counts"}}))
     print(json.dumps({"moe": {k: v for k, v in moe.items()
                               if k not in ("counts", "family_counts")}}, default=str))
+    print(json.dumps({"new_families": {k: v for k, v in fams.items() if k != "counts"}},
+                     default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

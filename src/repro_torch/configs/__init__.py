@@ -4,9 +4,7 @@ Each entry carries the full published config, a reduced smoke config of
 the same family, and the reference's per-arch distribution settings (ZeRO
 sharding, sequence parallelism, microbatches, optimizer dtype) as data:
 nothing reads them until the parallelism port. Counterpart of
-``repro.configs``, in its order; zamba2-1.2b, rwkv6-7b and whisper-medium
-wait for their model families, and ``get_arch`` raises ``KeyError`` for
-them until then.
+``repro.configs``: all ten architectures, in its order.
 """
 
 from __future__ import annotations
@@ -20,8 +18,11 @@ from . import (
     h2o_danube3_4b,
     internlm2_20b,
     paligemma_3b,
+    rwkv6_7b,
     smollm_135m,
     starcoder2_15b,
+    whisper_medium,
+    zamba2_1p2b,
 )
 
 
@@ -55,13 +56,17 @@ ARCHS: Dict[str, ArchEntry] = {
                   zero=True, microbatches=2),
         ArchEntry("smollm-135m", smollm_135m.FULL, smollm_135m.SMOKE,
                   zero=False, seq_parallel=False, pure_dp=True),
+        ArchEntry("zamba2-1.2b", zamba2_1p2b.FULL, zamba2_1p2b.SMOKE, zero=True),
         ArchEntry("paligemma-3b", paligemma_3b.FULL, paligemma_3b.SMOKE, zero=True),
+        ArchEntry("rwkv6-7b", rwkv6_7b.FULL, rwkv6_7b.SMOKE, zero=True),
         ArchEntry("dbrx-132b", dbrx_132b.FULL, dbrx_132b.SMOKE,
                   zero=True, zero_params=True, microbatches=4,
                   opt_dtype="bfloat16"),
         ArchEntry("grok-1-314b", grok1_314b.FULL, grok1_314b.SMOKE,
                   zero=True, zero_params=True, microbatches=4,
                   opt_dtype="bfloat16"),
+        ArchEntry("whisper-medium", whisper_medium.FULL, whisper_medium.SMOKE,
+                  zero=False),
     ]
 }
 

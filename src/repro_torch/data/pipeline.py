@@ -6,8 +6,9 @@ Counterpart of ``repro.data.pipeline``: every batch is a pure function of
 restart replays the exact stream. Tokens come back as int32 on the device
 the pipeline was made for. Length buckets cycle with the step. With
 ``patch_dim`` (the vlm family) a batch also carries 16 seeded float32
-patch embeddings a sequence, as the reference's; its ``frame_dim`` input
-waits for the audio family.
+patch embeddings a sequence, and with ``frame_dim`` (the audio family) one
+seeded float32 frame embedding a position, drawn after the patches from
+the same stream, as the reference's.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ class DataConfig:
     buckets: Tuple[float, ...] = (1.0,)
     #: vlm: width of the patch embeddings
     patch_dim: Optional[int] = None
+    #: audio: width of the frame embeddings
+    frame_dim: Optional[int] = None
 
 
 class SyntheticTokens:
@@ -63,6 +66,9 @@ class SyntheticTokens:
         if cfg.patch_dim is not None:
             patches = rng.standard_normal((local, 16, cfg.patch_dim)).astype(np.float32)
             batch["patch_embeds"] = torch.from_numpy(patches).to(self.device)
+        if cfg.frame_dim is not None:
+            frames = rng.standard_normal((local, s, cfg.frame_dim)).astype(np.float32)
+            batch["frames"] = torch.from_numpy(frames).to(self.device)
         return batch
 
     def __iter__(self) -> Iterator[Dict]:

@@ -68,9 +68,11 @@ def run(args: argparse.Namespace,
     adamw = opt.AdamWConfig(lr=args.lr)
     state = init_state(cfg, adamw, torch.Generator().manual_seed(args.seed), device)
     step_fn = make_train_step(cfg, adamw, microbatches=args.microbatches)
+    fam = family_of(cfg)
     data = SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
-        patch_dim=cfg.d_model if family_of(cfg).name == "vlm" else None), device)
+        patch_dim=cfg.d_model if fam.name == "vlm" else None,
+        frame_dim=cfg.d_model if fam.name == "audio" else None), device)
     ckpt = ckpt or CheckpointManager(args.ckpt_dir)
     sup = Supervisor(step_fn, data.batch_at, ckpt,
                      SupervisorConfig(checkpoint_every=args.ckpt_every), device=device)

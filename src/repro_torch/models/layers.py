@@ -10,6 +10,7 @@ float32.
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -30,6 +31,35 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
     fan_in = shape[in_axis]
     w = torch.randn(shape, generator=generator, dtype=torch.float32)
     return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+#: host threads that draw the slices of one stacked leaf at once
+_INIT_WORKERS = 8
+
+
+def sliced_init(generator: torch.Generator, shape, n_lead: int, dtype,
+                device) -> torch.Tensor:
+    """``dense_init`` of a leaf stacked on its ``n_lead`` leading axes (fan-in
+    on the first axis after them), in ``dtype`` on ``device``. Each slice is
+    drawn by its own CPU generator, seeded in order from ``generator``, so a
+    seed gives the same weights on every device; slices are drawn by a few
+    host threads at once and copied straight into the preallocated stacked
+    tensor, so the host holds a few slices at a time, not the whole leaf in
+    float32."""
+    lead = shape[:n_lead]
+    n = math.prod(lead)
+    seeds = torch.randint(2**62, (n,), generator=generator).tolist()
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(n, *shape[n_lead:])
+
+    def draw(i):
+        g = torch.Generator().manual_seed(seeds[i])
+        return dense_init(g, shape[n_lead:], in_axis=0, dtype=dtype)
+
+    with ThreadPoolExecutor(_INIT_WORKERS) as pool:
+        for i, w in enumerate(pool.map(draw, range(n))):
+            flat[i] = w
+    return out
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -285,6 +315,19 @@ def decode_attention_dense(
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, gated: bool,
+             dtype=torch.float32) -> dict:
+    """One MLP's weights, drawn in the reference's order: ``wi``, ``wo``,
+    then ``wg`` when gated."""
+    p = {
+        "wi": dense_init(generator, (d_model, d_ff), dtype=dtype),
+        "wo": dense_init(generator, (d_ff, d_model), dtype=dtype),
+    }
+    if gated:
+        p["wg"] = dense_init(generator, (d_model, d_ff), dtype=dtype)
+    return p
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str = "gelu", gated: bool = False):

@@ -16,11 +16,9 @@ weighted expert outputs into ``(T, k, d)`` and sums over k, where an
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, NamedTuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -78,30 +76,6 @@ class MoEConfig(TransformerConfig):
 # params
 # ---------------------------------------------------------------------------
 
-#: host threads that draw expert slices at once
-_INIT_WORKERS = 8
-
-
-def _expert_init(cfg: MoEConfig, generator: torch.Generator, shape, dev) -> torch.Tensor:
-    """Stacked expert weights ``(L, Ev, a, b)`` with fan-in ``a``, in
-    ``cfg.dtype`` on ``dev``. Each (layer, expert) slice is drawn by its own
-    CPU generator, seeded in order from ``generator``, so a seed gives the
-    same weights on every device; slices are drawn by a few host threads at
-    once and copied straight into the preallocated stacked tensor, so the
-    host holds a few slices at a time, not the whole leaf in float32."""
-    n_l, n_e = shape[:2]
-    seeds = torch.randint(2**62, (n_l * n_e,), generator=generator).tolist()
-    out = torch.empty(shape, dtype=cfg.dtype, device=dev)
-
-    def draw(i):
-        g = torch.Generator().manual_seed(seeds[i])
-        return L.dense_init(g, shape[2:], in_axis=0, dtype=cfg.dtype)
-
-    with ThreadPoolExecutor(_INIT_WORKERS) as pool:
-        for i, w in enumerate(pool.map(draw, range(n_l * n_e))):
-            out[i // n_e, i % n_e] = w
-    return out
-
 
 def init_params(cfg: MoEConfig, generator: torch.Generator, device: DeviceLike = "cuda") -> Dict:
     """Random weights from ``generator`` on ``device``: the dense tree with
@@ -115,21 +89,15 @@ def init_params(cfg: MoEConfig, generator: torch.Generator, device: DeviceLike =
 
     moe = {
         "router": w((n, d, cfg.n_experts), 1, torch.float32),
-        "wi": _expert_init(cfg, generator, (n, cfg.n_virtual, d, f), dev),
-        "wo": _expert_init(cfg, generator, (n, cfg.n_virtual, f, d), dev),
+        "wi": L.sliced_init(generator, (n, cfg.n_virtual, d, f), 2, cfg.dtype, dev),
+        "wo": L.sliced_init(generator, (n, cfg.n_virtual, f, d), 2, cfg.dtype, dev),
     }
     if cfg.gated:
-        moe["wg"] = _expert_init(cfg, generator, (n, cfg.n_virtual, d, f), dev)
+        moe["wg"] = L.sliced_init(generator, (n, cfg.n_virtual, d, f), 2, cfg.dtype, dev)
     return T._to_device(T.init_tree(cfg, w, moe), dev)
 
 
-def params_from_jax_numpy(cfg: MoEConfig, tree: Dict, device: DeviceLike = "cuda") -> Dict:
-    """The dense converter, with the router kept in float32 as the
-    reference keeps it whatever ``cfg.dtype`` is."""
-    params = T.params_from_jax_numpy(cfg, tree, device)
-    router = np.array(tree["layers"]["mlp"]["router"], dtype=np.float32)
-    params["layers"]["mlp"]["router"] = torch.from_numpy(router).to(resolve_device(device))
-    return params
+params_from_jax_numpy = T.params_from_jax_numpy  # keeps the float32 router
 
 
 # ---------------------------------------------------------------------------

@@ -127,15 +127,20 @@ def init_tree(cfg: TransformerConfig, w, mlp: Dict) -> Dict:
 def params_from_jax_numpy(cfg: TransformerConfig, tree: Dict,
                           device: DeviceLike = "cuda") -> Dict:
     """The port's params from a JAX param tree whose leaves are numpy arrays
-    (``jax.tree.map(np.asarray, params)``); same nesting, stacked leaves."""
+    (``jax.tree.map(np.asarray, params)``); same nesting, stacked leaves.
+    Each leaf is cast to ``cfg.dtype``, except that a float32 leaf stays
+    float32: the reference keeps some leaves float32 in a bf16 model (the
+    MoE router, mamba2's ``A_log``, ``D`` and ``dt_bias``, rwkv6's ``w0`` and
+    ``u``). Every family converts through this function."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        dtype = torch.float32 if x.dtype == np.float32 else cfg.dtype
         # through float32: numpy has no bfloat16, and ml_dtypes arrays do
         # not convert to torch directly
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dtype)
 
     return conv(tree)
 

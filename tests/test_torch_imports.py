@@ -41,5 +41,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.models.paligemma", "repro_torch.configs.dbrx_132b",
                  "repro_torch.configs.grok1_314b", "repro_torch.configs.paligemma_3b",
                  "repro_torch.configs.h2o_danube3_4b", "repro_torch.configs.internlm2_20b",
-                 "repro_torch.configs.starcoder2_15b"):
+                 "repro_torch.configs.starcoder2_15b", "repro_torch.models.mamba2",
+                 "repro_torch.models.zamba2", "repro_torch.models.rwkv6",
+                 "repro_torch.models.whisper", "repro_torch.configs.zamba2_1p2b",
+                 "repro_torch.configs.rwkv6_7b", "repro_torch.configs.whisper_medium"):
         assert name in result["imported"]
