@@ -105,7 +105,26 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    those from the state that never left), with launch counts zeroed before
    (c) and all > 0 after (d); (e) zamba2-1.2b and whisper-medium trained 5
    steps at full width through ``repro_torch.launch.train`` (finite
-   losses, no restart, ms/step and peak memory); phase 9's wall time.
+   losses, no restart, ms/step and peak memory); phase 9's wall time;
+10. parallelism on a one-rank ``nccl`` group (``launch/mesh.py``), destroyed
+   at the end: (a) phase 6b's run (smollm-135m at full width, bf16, remat,
+   same seed and batches) cut to ``PAR_STEPS`` steps through the sharded
+   launcher path with ``--model-parallel 2``, which one rank clamps to a
+   (1, 1) mesh: every loss within ``TRAIN_LOSS_RTOL_BF16`` of 6b's first
+   steps (and whether bit-equal), every state leaf a DTensor on the mesh
+   with the rules' placements; then ``measure`` of the sharded step (ms/step,
+   peak memory, device busy and idle share, kernels a step) beside 6b's;
+   (b) dbrx-132b at full width cut to ``DBRX_LAYERS`` (phase 8's weights,
+   kept on the host meanwhile), one loss and the router and expert
+   gradients at batch 2 x seq 256 through ``moe_apply_a2a`` on the
+   one-rank mesh with ZeRO-3 weights (``zero_axis="data"``) against the
+   global dispatch: every layer's routing and dropped slots equal, the
+   loss within rtol 5e-4, the gradients within 2e-2 of each row's largest
+   value; (c) ``compressed_psum`` for 30 error-feedback steps on a 49152 x
+   576 f32 gradient (smollm's embedding, error below 0.05), and
+   ``ring_layer_matmul`` and ``pipeline_forward`` against their dense
+   versions within 2e-5 (f32); each leg prints a ``{"parallel": {...}}``
+   line with the card's name and power limit.
 
 Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
@@ -113,7 +132,8 @@ is each kernel's count on the serving path, phases 3-4, whose shapes phase
 5 times; ``launches_by_path`` has it beside the training path's, phase 6,
 the kill/recover path's, phase 7, the MoE serving path's, 8a-b, 8d's, and
 the new families', 9c-d), a ``{"kill_recover": {...}}``, a ``{"moe":
-{...}}`` and a ``{"new_families": {...}}`` line, then the ``nvidia-smi``
+{...}}`` and a ``{"new_families": {...}}`` line (phase 10 prints its three
+``{"parallel": {...}}`` lines as it runs), then the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
@@ -210,6 +230,19 @@ STATE_DECODE = 4
 NEW_TRAIN_ARCHS = ("zamba2-1.2b", "whisper-medium")
 NEW_TRAIN_ARGS = ["--steps", "5", "--batch", "8", "--seq", "256", "--seed", "0",
                   "--device", "cuda"]
+#: phase 10a: phase 6b's run cut to this many steps, on the sharded path
+PAR_STEPS = 5
+#: 10b: dbrx-132b's loss and gradients through the a2a dispatch on this
+#: batch of seeded tokens, against the global dispatch
+PAR_MOE_BATCH, PAR_MOE_SEQ, PAR_MOE_SEED = 2, 256, 2
+PAR_MOE_LOSS_RTOL, PAR_MOE_GRAD_TOL = 5e-4, 2e-2
+#: 10c: compressed_psum on smollm's embedding-sized gradient; the ring
+#: matmul and GPipe at smollm's width (x (tokens, d) @ W (d, d_ff); 8
+#: tanh layers in 4 stages, 6 microbatches); f32, TF32 off
+PSUM_SHAPE, PSUM_STEPS, PSUM_SEED = (49152, 576), 30, 3
+RING_X, RING_W = (2048, 576), (576, 1536)
+PIPE_LAYERS, PIPE_MICRO, PIPE_MB = 8, 6, (2, 256, 576)
+PAR_TOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -996,7 +1029,8 @@ def train_path(card: str) -> dict:
     log(f"phase 6: kernel launches on the training path {counts}")
     assert counts["stitch_gather"] > 0 and counts["stitch_scatter"] > 0, counts
     return dict(counts=counts, parity_rel=rels, timing=timing, offload=offload,
-                steps=result["steps"], first_loss=result["first_loss"],
+                steps=result["steps"], losses=[h["loss"] for h in result["history"]],
+                first_loss=result["first_loss"],
                 last_loss=result["last_loss"], run_tokens_per_s=result["tokens_per_s"],
                 run_peak_allocated_bytes=result["peak_allocated_bytes"],
                 run_peak_reserved_bytes=result["peak_reserved_bytes"])
@@ -1564,6 +1598,11 @@ def moe_path(card: str, rng) -> dict:
     log(f"phase 8b: kernel launches on the MoE serving path {counts}")
     assert all(n > 0 for n in counts.values()), counts
     layer = moe_layer(params, cfg)
+    # phase 10b reuses the weights: they wait on the host, so phases 8d and
+    # 9 measure their peaks without them
+    from repro_torch.tree import tree_map
+
+    host_params = tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -1575,7 +1614,8 @@ def moe_path(card: str, rng) -> dict:
     wall = round(time.perf_counter() - t_phase, 3)
     log(f"phase 8: wall time {wall} s")
     return dict(counts=counts, family_counts=fam_counts, served=served, lake=lake_row,
-                layer=layer, smoke=smoke, paligemma=pali, wall_s=wall)
+                layer=layer, smoke=smoke, paligemma=pali, wall_s=wall,
+                host_params=host_params)
 
 
 # ---------------------------------------------------------------------------
@@ -1878,6 +1918,250 @@ def new_families(card: str, rng) -> dict:
                 wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: parallelism on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+
+def parallel_line(leg: str, card: str, row: dict) -> None:
+    print(json.dumps({"parallel": {"leg": leg, "card": card, **row}}, default=str))
+
+
+def sharded_training(card: str, trained: dict) -> dict:
+    """10a: phase 6b's run cut to ``PAR_STEPS`` steps through the launcher's
+    sharded path (``--model-parallel 2``, a (1, 1) mesh on one rank), then
+    its step timed and profiled in steady state by ``measure``, as 6b's."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step, state_axes
+    from repro_torch.tree import flatten_with_path, leaves
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_train import measure
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_dir, prefix="ckpt-par-") as workdir:
+        args = train.parse_args(TRAIN_ARGS + ["--steps", str(PAR_STEPS), "--model-parallel", "2",
+                                              "--ckpt-dir", workdir])
+        result, state = train.run(args)
+    entry = get_arch(args.arch)
+    cfg = entry.smoke if args.smoke else entry.full
+    mesh = leaves(state)[0].device_mesh
+    assert result["mesh"] == {"shape": [1, 1], "names": ["data", "model"]}, result["mesh"]
+    rules = S.make_rules(mesh, kind="train", seq_parallel=False)
+    want = S.tree_shardings(state, state_axes(cfg), rules, mesh, zero=entry.zero)
+    for (path, leaf), sh in zip(flatten_with_path(state), leaves(want), strict=True):
+        assert isinstance(leaf, DTensor) and leaf.device_mesh == mesh, path
+        assert tuple(leaf.placements) == sh.placements, (path, leaf.placements, sh.placements)
+    losses = [h["loss"] for h in result["history"]]
+    plain = trained["losses"][:PAR_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain, strict=True))
+    assert rel <= TRAIN_LOSS_RTOL_BF16, (losses, plain)
+    n_leaves = len(leaves(state))
+    # steady state, measured as 6b's: the sharded step on placed batches
+    step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr), S.make_sharder(mesh, rules))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.batch, seed=args.seed), DEVICE)
+
+    def batch_at(step):
+        batch = data.batch_at(step)
+        return S.place_tree(batch, S.batch_shardings(batch, rules, mesh))
+
+    torch.cuda.empty_cache()
+    state, timing = measure(step_fn, state, batch_at, args.steps)
+    assert math.isfinite(timing["last_loss"]), timing
+    prof, prof6b = timing["profiled"], trained["timing"]["profiled"]
+    row = dict(arch=cfg.name, mesh=result["mesh"], world=result["world"],
+               backend=result["backend"], fallbacks=result["fallbacks"], steps=result["steps"],
+               losses=losses, plain_losses=plain, max_rel=rel, bit_equal=losses == plain,
+               ms_per_step=timing["ms_per_step"],
+               peak_allocated_bytes=timing["peak_allocated_bytes"],
+               peak_reserved_bytes=timing["peak_reserved_bytes"],
+               device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+               device_idle_share=prof["device_idle_share"],
+               kernels_per_step=prof["kernels_per_step"],
+               phase6b=dict(ms_per_step=trained["timing"]["ms_per_step"],
+                            peak_allocated_bytes=trained["timing"]["peak_allocated_bytes"],
+                            peak_reserved_bytes=trained["timing"]["peak_reserved_bytes"],
+                            device_busy_ms_per_step=prof6b["device_busy_ms_per_step"],
+                            device_idle_share=prof6b["device_idle_share"],
+                            kernels_per_step=prof6b["kernels_per_step"]))
+    log(f"phase 10a: {cfg.name} on the sharded launcher path, mesh {result['mesh']['shape']} "
+        f"({result['backend']}), {n_leaves} DTensor leaves with the rules' "
+        f"placements; losses {['%.6f' % x for x in losses]} vs 6b's "
+        f"{['%.6f' % x for x in plain]} (max rel {rel:.3g}, bit-equal {row['bit_equal']}); "
+        f"steady state on {card}: {row['ms_per_step']:.3f} ms/step (6b "
+        f"{row['phase6b']['ms_per_step']:.3f}), peak allocated "
+        f"{row['peak_allocated_bytes'] / 2**30:.3f} GiB (6b "
+        f"{row['phase6b']['peak_allocated_bytes'] / 2**30:.3f}), reserved "
+        f"{row['peak_reserved_bytes'] / 2**30:.3f} GiB (6b "
+        f"{row['phase6b']['peak_reserved_bytes'] / 2**30:.3f}); under the profiler device "
+        f"busy {row['device_busy_ms_per_step']:.3f} ms/step (6b "
+        f"{row['phase6b']['device_busy_ms_per_step']:.3f}), idle share "
+        f"{row['device_idle_share']:.4f} (6b {row['phase6b']['device_idle_share']:.4f}), "
+        f"{row['kernels_per_step']:.0f} kernels/step (6b "
+        f"{row['phase6b']['kernels_per_step']:.0f}); fallbacks {result['fallbacks']}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def a2a_dbrx(card: str, host_params) -> dict:
+    """10b: dbrx-132b cut to ``DBRX_LAYERS``, one loss and the router and
+    expert gradients through ``moe_apply_a2a`` on the one-rank mesh with
+    ZeRO-3 expert weights, against the global dispatch."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as S
+    from repro_torch.tree import tree_map
+
+    cfg = dbrx_config()
+    assert cfg.a2a_dispatch
+    mesh = make_host_mesh(model=2, device=DEVICE)
+    sharder = S.make_sharder(mesh, S.make_rules(mesh, kind="train"), zero_params=True)
+    t0 = time.perf_counter()
+    params = tree_map(lambda t: t.to(DEVICE), host_params)
+    to_card_s = sync_s(t0)
+    keys = sorted(params["layers"]["mlp"])
+    tokens = {"tokens": torch.from_numpy(np.random.default_rng(PAR_MOE_SEED).integers(
+        0, cfg.vocab, (PAR_MOE_BATCH, PAR_MOE_SEQ))).to(DEVICE)}
+    routed = []
+    dispatch = moe.dispatch
+
+    def recorded(cfg_, router, xf):
+        r, dest, buf = dispatch(cfg_, router, xf)
+        routed.append((r.topi, r.order, r.kept))
+        return r, dest, buf
+
+    def loss_and_grads(c, shard):
+        mlp = {k: v.detach().requires_grad_(True) for k, v in params["layers"]["mlp"].items()}
+        p = dict(params, layers=dict(params["layers"], mlp=mlp))
+        t = time.perf_counter()
+        loss = moe.loss_fn(c, p, tokens, sharder=shard)
+        grads = torch.autograd.grad(loss, [mlp[k] for k in keys])
+        return float(loss), dict(zip(keys, grads)), sync_s(t)
+
+    moe.dispatch = recorded
+    try:
+        loss_a2a, g_a2a, a2a_s = loss_and_grads(cfg, sharder)
+        n_a2a = len(routed)
+        loss_g, g_glob, glob_s = loss_and_grads(dataclasses.replace(cfg, a2a_dispatch=False),
+                                                lambda x, names: x)
+    finally:
+        moe.dispatch = dispatch
+    assert n_a2a > 0 and len(routed) == 2 * n_a2a, (n_a2a, len(routed))
+    dropped = []
+    for (ti_a, or_a, k_a), (ti_g, or_g, k_g) in zip(routed[:n_a2a], routed[n_a2a:]):
+        assert torch.equal(ti_a, ti_g) and torch.equal(or_a, or_g), "a2a routing differs"
+        assert torch.equal(k_a, k_g), "a2a dropped slots differ"
+        dropped.append(int((~k_g).sum()))
+    loss_rel = abs(loss_a2a - loss_g) / abs(loss_g)
+    assert loss_rel <= PAR_MOE_LOSS_RTOL, (loss_a2a, loss_g)
+    grad_rel = {}
+    for k in keys:
+        a, g = g_a2a[k], g_glob[k]
+        worst = 0.0
+        for i in range(a.shape[0]):  # a layer at a time: f32 rows of one layer at once
+            err = (a[i].float() - g[i].float()).abs().amax(-1)
+            worst = max(worst, float((err / g[i].float().abs().amax(-1).clamp_min(1e-30)).max()))
+        grad_rel[k] = worst
+        assert worst <= PAR_MOE_GRAD_TOL, (k, worst)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=PAR_MOE_BATCH, seq=PAR_MOE_SEQ,
+               mesh=list(mesh.shape), zero_axis="data", loss_a2a=loss_a2a, loss_global=loss_g,
+               loss_rel=loss_rel, bit_equal_loss=loss_a2a == loss_g, grad_rel=grad_rel,
+               dispatches=n_a2a, dropped=dropped, a2a_s=a2a_s, global_s=glob_s,
+               to_card_s=to_card_s, peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"phase 10b: {cfg.name} at full width ({cfg.n_layers} layers), batch {PAR_MOE_BATCH} x "
+        f"seq {PAR_MOE_SEQ}, one loss and gradient through moe_apply_a2a on mesh "
+        f"{list(mesh.shape)} with ZeRO-3 weights vs the global dispatch: routing and dropped "
+        f"slots equal in all {n_a2a} dispatches (dropped {dropped}), loss {loss_a2a:.6f} vs "
+        f"{loss_g:.6f} (rel {loss_rel:.3g}), gradients within {max(grad_rel.values()):.3g} of "
+        f"each row's largest value ({grad_rel}); a2a {a2a_s} s, global {glob_s} s; weights "
+        f"back on the card in {to_card_s} s")
+    del params, g_a2a, g_glob
+    torch.cuda.empty_cache()
+    return row
+
+
+def collectives_on_card(card: str) -> dict:
+    """10c: compressed_psum, the ring matmul and GPipe on the one-rank group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel.collectives import compressed_psum, ring_layer_matmul
+    from repro_torch.parallel.pipeline import pipeline_forward, split_stages
+
+    rng = np.random.default_rng(PSUM_SEED)
+    g = rand(rng, PSUM_SHAPE, torch.float32)
+    residual, acc = torch.zeros_like(g), torch.zeros_like(g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PSUM_STEPS):
+        mean, residual = compressed_psum(g, residual)
+        acc += mean
+    psum_ms = sync_s(t0) * 1e3 / PSUM_STEPS
+    # one rank: the exact mean is the gradient itself
+    psum_err = float((acc / PSUM_STEPS - g).abs().max() / g.abs().max())
+    assert psum_err < 0.05, psum_err
+    x, w = rand(rng, RING_X, torch.float32), rand(rng, RING_W, torch.float32)
+    ring_err = max_err(ring_layer_matmul(x, w), x @ w) / float((x @ w).abs().max())
+    assert ring_err <= PAR_TOL, ring_err
+    d = PIPE_MB[-1]
+    ws = rand(rng, (PIPE_LAYERS, d, d), torch.float32) / math.sqrt(d)
+    xs = rand(rng, (PIPE_MICRO,) + PIPE_MB, torch.float32)
+
+    def stage_fn(stage_ws, h):
+        for wl in stage_ws:
+            h = torch.tanh(h @ wl)
+        return h
+
+    pod = init_device_mesh(DEVICE, (1,), mesh_dim_names=("pod",))
+    t0 = time.perf_counter()
+    ys = pipeline_forward(stage_fn, split_stages(ws, 1), xs, pod, "pod")
+    pipe_s = sync_s(t0)
+    dense = stage_fn(ws, xs)
+    pipe_err = max_err(ys, dense) / float(dense.abs().max())
+    assert pipe_err <= PAR_TOL, pipe_err
+    row = dict(psum_shape=list(PSUM_SHAPE), psum_steps=PSUM_STEPS, psum_err=psum_err,
+               psum_ms_per_step=psum_ms, ring_shapes=[list(RING_X), list(RING_W)],
+               ring_rel=ring_err, pipeline_layers=PIPE_LAYERS, pipeline_micro=PIPE_MICRO,
+               pipeline_rel=pipe_err, pipeline_s=pipe_s)
+    log(f"phase 10c: compressed_psum {PSUM_STEPS} steps on {PSUM_SHAPE} f32, time-averaged "
+        f"error {psum_err:.3g} (limit 0.05), {psum_ms:.3f} ms a step; ring matmul "
+        f"{RING_X} @ {RING_W} within {ring_err:.3g} of the dense product; GPipe "
+        f"{PIPE_LAYERS} layers x {PIPE_MICRO} microbatches of {PIPE_MB} within {pipe_err:.3g}")
+    return row
+
+
+def parallel(card: str, trained: dict, host_params) -> dict:
+    """Phase 10, on a one-rank process group started here and destroyed at
+    the end; no check in it is caught."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ensure_process_group
+
+    t0 = time.perf_counter()
+    backend = ensure_process_group(DEVICE)
+    rows = {"10a": sharded_training(card, trained)}
+    parallel_line("10a", card, rows["10a"])
+    torch.cuda.reset_peak_memory_stats()
+    rows["10b"] = a2a_dbrx(card, host_params)
+    parallel_line("10b", card, rows["10b"])
+    rows["10c"] = collectives_on_card(card)
+    parallel_line("10c", card, rows["10c"])
+    dist.destroy_process_group()
+    log(f"phase 10: {backend} group of one rank; wall time {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1930,6 +2214,7 @@ def main() -> int:
     kr = kill_recover(card, rng)
     moe = moe_path(card, rng)
     fams = new_families(card, rng)
+    parallel(card, trained, moe.pop("host_params"))
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
@@ -1942,7 +2227,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kill_recover": {k: v for k, v in kr.items() if k != "counts"}}))
     print(json.dumps({"moe": {k: v for k, v in moe.items()
-                              if k not in ("counts", "family_counts")}}, default=str))
+                              if k not in ("counts", "family_counts", "host_params")}},
+                     default=str))
     print(json.dumps({"new_families": {k: v for k, v in fams.items() if k != "counts"}},
                      default=str))
     print(card)

@@ -16,6 +16,12 @@ back through an int16 view. Data goes into a ``.tmp`` directory that is
 renamed into place, and the newest ``keep`` committed steps are kept.
 ``save_async`` copies the state to host memory before it returns and
 writes it in a background thread.
+
+A state of DTensors (a sharded train state) is saved as whole leaves in
+the same layout: every rank gathers each leaf (``full_tensor``), rank 0
+writes, and the others wait for the commit at the next ``wait``.
+``restore(..., shardings=)`` places each leaf on the given mesh and
+placements, so the mesh that restores may differ from the one that saved.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
-from ..tree import flatten_with_path, unflatten_like
+from ..parallel.sharding import full, place, place_as
+from ..tree import flatten_with_path, leaves, unflatten_like
 
 BF16 = "bfloat16"
 
@@ -53,8 +62,19 @@ def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _snapshot(tree) -> Dict[str, np.ndarray]:
-    return {path: _host_copy(leaf) for path, leaf in flatten_with_path(tree)}
+def _snapshot(tree, keep: bool = True) -> Dict[str, np.ndarray]:
+    """Host copies of the whole leaves; every rank gathers a DTensor leaf,
+    only a rank that ``keep``s copies it."""
+    out = {}
+    for path, leaf in flatten_with_path(tree):
+        whole = full(leaf)
+        if keep:
+            out[path] = _host_copy(whole)
+    return out
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for leaf in leaves(tree))
 
 
 class CheckpointManager:
@@ -65,6 +85,7 @@ class CheckpointManager:
         self.host_id = host_id
         self._thread: Optional[threading.Thread] = None
         self._last_error: Optional[BaseException] = None
+        self._commit_barrier = False  # a sharded save the other ranks wait for
 
     # ------------------------------------------------------------------
     def step_dir(self, step: int) -> Path:
@@ -81,13 +102,23 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any) -> Path:
         """Synchronous atomic save."""
-        return self._write(step, _snapshot(tree))
+        self._save(step, tree, background=False)
+        self.wait()
+        return self.step_dir(step)
 
     def save_async(self, step: int, tree: Any) -> None:
         """Snapshot to host memory now, write in the background. Joins any
         previous save first."""
+        self._save(step, tree, background=True)
+
+    def _save(self, step: int, tree: Any, background: bool) -> None:
+        """A sharded state is gathered by every rank and written by rank 0."""
         self.wait()
-        arrays = _snapshot(tree)
+        self._commit_barrier = _sharded(tree)
+        writer = not self._commit_barrier or dist.get_rank() == 0
+        arrays = _snapshot(tree, keep=writer)
+        if not writer:
+            return
 
         def worker():
             try:
@@ -95,6 +126,9 @@ class CheckpointManager:
             except BaseException as e:  # noqa: BLE001 - raised again by wait()
                 self._last_error = e
 
+        if not background:
+            worker()
+            return
         self._thread = threading.Thread(target=worker, daemon=True)
         self._thread.start()
 
@@ -102,6 +136,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._commit_barrier:
+            self._commit_barrier = False
+            dist.barrier()
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
@@ -138,10 +175,13 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, like: Any, step: Optional[int] = None,
-                device: Optional[DeviceLike] = None) -> Any:
+                device: Optional[DeviceLike] = None, shardings: Any = None) -> Any:
         """The checkpoint at ``step`` (default: the latest committed) in the
         structure of ``like``, each leaf cast to the dtype of its ``like``
-        leaf and placed on ``device`` (default: that leaf's device)."""
+        leaf and placed on ``device`` (default: that leaf's device). With
+        ``shardings`` (a tree of ``Sharding``), each leaf becomes a DTensor
+        on its mesh and placements (elastic: any mesh); a DTensor ``like``
+        leaf with no sharding given keeps its own layout."""
         device = None if device is None else resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -158,9 +198,15 @@ class CheckpointManager:
         missing = [p for p, _ in flat if p not in data]
         if missing:
             raise KeyError(f"checkpoint {d} missing leaves: {missing[:5]}...")
+        shs = leaves(shardings) if shardings is not None else [None] * len(flat)
         out = []
-        for path, ref in flat:
-            ref = torch.as_tensor(ref)
+        for (path, ref), sh in zip(flat, shs, strict=True):
             t = _from_host(data[path], dtypes[path])
-            out.append(t.to(device=ref.device if device is None else device, dtype=ref.dtype))
+            if sh is not None:
+                out.append(place(t.to(device=sh.mesh.device_type, dtype=ref.dtype), sh))
+            elif isinstance(ref, DTensor):
+                out.append(place_as(t.to(device=ref.device, dtype=ref.dtype), ref))
+            else:
+                ref = torch.as_tensor(ref)
+                out.append(t.to(device=ref.device if device is None else device, dtype=ref.dtype))
         return unflatten_like(like, out)

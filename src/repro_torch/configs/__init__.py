@@ -2,9 +2,13 @@
 
 Each entry carries the full published config, a reduced smoke config of
 the same family, and the reference's per-arch distribution settings (ZeRO
-sharding, sequence parallelism, microbatches, optimizer dtype) as data:
-nothing reads them until the parallelism port. Counterpart of
-``repro.configs``: all ten architectures, in its order.
+sharding, sequence parallelism, microbatches, optimizer dtype) as data.
+The train launcher reads ``zero`` (the state's ZeRO sharding), as the
+reference's does; ``zero_params``, ``seq_parallel``, ``microbatches``,
+``opt_dtype`` and ``pure_dp`` are read by the dry run (not yet ported),
+and the parallelism tests give ``zero_params`` and ``microbatches`` to the
+sharded train step themselves. Counterpart of ``repro.configs``: all ten
+architectures, in its order.
 """
 
 from __future__ import annotations

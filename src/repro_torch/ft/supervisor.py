@@ -112,6 +112,7 @@ class Supervisor:
         config: Optional[SupervisorConfig] = None,
         clock: Callable[[], float] = time.monotonic,
         device: Optional[DeviceLike] = None,
+        state_shardings: Any = None,
     ):
         self.step_fn = step_fn
         self.batch_iter = batch_iter
@@ -129,6 +130,8 @@ class Supervisor:
         # tuple drops RuntimeError — the "raise" policy routes through here
         self._recoverable = (StragglerEvent,) + tuple(self.config.recoverable)
         self.device = device
+        # a restored sharded state is placed back on these (``Sharding`` tree)
+        self.state_shardings = state_shardings
         self.events: List[Dict] = []  # audit log: restarts, stragglers
 
     def run(self, state: Any, start_step: int, n_steps: int,
@@ -178,7 +181,9 @@ class Supervisor:
                     del history[:]  # those steps will be re-run
                     continue
                 log.warning("restoring step %d after failure at step %d", last, step)
-                state = self.ckpt.restore(state, step=last, device=self.device)
+                sharded = ({} if self.state_shardings is None
+                           else {"shardings": self.state_shardings})
+                state = self.ckpt.restore(state, step=last, device=self.device, **sharded)
                 step = last
                 # drop rolled-back entries: they re-run from the restored
                 # step, and a history with duplicated steps mis-plots

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.models.api``, with all six of its families; the
 launchers, the train step and the serving engine go through
-``family_of(cfg)``. ``param_axes`` and ``cache_axes`` wait for the
-parallelism port.
+``family_of(cfg)``. ``param_axes`` and ``cache_axes`` name every leaf's
+dims for the sharding rules (``repro_torch.parallel.sharding``);
+``param_shapes`` gives a config's param tree as meta tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict
 
+import torch
+
+from . import layers as L
 from . import moe, paligemma, rwkv6, transformer, whisper, zamba2
 
 
@@ -18,37 +22,49 @@ from . import moe, paligemma, rwkv6, transformer, whisper, zamba2
 class Family:
     name: str
     init_params: Callable
+    param_axes: Callable
     loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    cache_axes: Callable
 
 
 FAMILIES: Dict[str, Family] = {
     "dense": Family(
-        "dense", transformer.init_params, transformer.loss_fn, transformer.prefill,
-        transformer.decode_step, transformer.init_cache,
+        "dense", transformer.init_params, transformer.param_axes, transformer.loss_fn,
+        transformer.prefill, transformer.decode_step, transformer.init_cache,
+        transformer.cache_axes,
     ),
     "moe": Family(
-        "moe", moe.init_params, moe.loss_fn, moe.prefill, moe.decode_step, moe.init_cache,
+        "moe", moe.init_params, moe.param_axes, moe.loss_fn, moe.prefill, moe.decode_step,
+        moe.init_cache, transformer.cache_axes,
     ),
     "hybrid": Family(
-        "hybrid", zamba2.init_params, zamba2.loss_fn, zamba2.prefill, zamba2.decode_step,
-        zamba2.init_cache,
+        "hybrid", zamba2.init_params, zamba2.param_axes, zamba2.loss_fn, zamba2.prefill,
+        zamba2.decode_step, zamba2.init_cache, zamba2.cache_axes,
     ),
     "ssm": Family(
-        "ssm", rwkv6.init_params, rwkv6.loss_fn, rwkv6.prefill, rwkv6.decode_step,
-        rwkv6.init_cache,
+        "ssm", rwkv6.init_params, rwkv6.param_axes, rwkv6.loss_fn, rwkv6.prefill,
+        rwkv6.decode_step, rwkv6.init_cache, rwkv6.cache_axes,
     ),
     "audio": Family(
-        "audio", whisper.init_params, whisper.loss_fn, whisper.prefill, whisper.decode_step,
-        whisper.init_cache,
+        "audio", whisper.init_params, whisper.param_axes, whisper.loss_fn, whisper.prefill,
+        whisper.decode_step, whisper.init_cache, whisper.cache_axes,
     ),
     "vlm": Family(
-        "vlm", paligemma.init_params, paligemma.loss_fn, paligemma.prefill,
-        paligemma.decode_step, paligemma.init_cache,
+        "vlm", paligemma.init_params, paligemma.param_axes, paligemma.loss_fn,
+        paligemma.prefill, paligemma.decode_step, paligemma.init_cache,
+        paligemma.cache_axes,
     ),
 }
+
+
+def param_shapes(cfg) -> Dict:
+    """The param tree of ``cfg`` as meta tensors (shapes and dtypes, no
+    memory and no draws), for the sharding rules at full size."""
+    with L.meta_init():
+        return family_of(cfg).init_params(cfg, torch.Generator(), "meta")
 
 
 def family_of(cfg) -> Family:

@@ -9,12 +9,17 @@ float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..parallel.sharding import as_dtensor, note_site, redistribute, run_local
 
 NEG_INF = -1e30
 
@@ -24,10 +29,27 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+_META_INIT = False
+
+
+@contextlib.contextmanager
+def meta_init():
+    """Inside, ``dense_init`` and ``sliced_init`` draw nothing and return
+    meta tensors: a full config's param tree as shapes and dtypes only."""
+    global _META_INIT
+    prev, _META_INIT = _META_INIT, True
+    try:
+        yield
+    finally:
+        _META_INIT = prev
+
+
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in) weights drawn on the CPU from ``generator`` (so a
     seed gives the same weights whatever device they are moved to)."""
+    if _META_INIT:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[in_axis]
     w = torch.randn(shape, generator=generator, dtype=torch.float32)
     return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
@@ -46,6 +68,8 @@ def sliced_init(generator: torch.Generator, shape, n_lead: int, dtype,
     host threads at once and copied straight into the preallocated stacked
     tensor, so the host holds a few slices at a time, not the whole leaf in
     float32."""
+    if _META_INIT:
+        return torch.empty(shape, dtype=dtype, device="meta")
     lead = shape[:n_lead]
     n = math.prod(lead)
     seeds = torch.randint(2**62, (n,), generator=generator).tolist()
@@ -83,6 +107,63 @@ ACTIVATIONS: dict = {
 
 
 # ---------------------------------------------------------------------------
+# embedding lookup
+# ---------------------------------------------------------------------------
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """Each rank's partial summed over ``groups``; the cotangent of the sum
+    is the same on every rank, so it passes through."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, group=g)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def embed(w, tokens):
+    """``w[tokens]``: rows of an embedding table (V, d).
+
+    On a DTensor table whose rows are split (the rules' ``vocab``), each rank
+    looks up the ids that fall in its rows, zeros for the others, and the
+    rows are summed over the split: the vocab-parallel embedding, exact
+    since one rank holds each row. The tokens keep their batch split. Any
+    other split of the table (ZeRO's, or a mesh dim that also splits the
+    tokens) is gathered first (site "embedding")."""
+    if not isinstance(w, DTensor):
+        return w[tokens.long()]
+    mesh = w.device_mesh
+    tok = as_dtensor(tokens, mesh)
+    rows_dims = [i for i, p in enumerate(w.placements)
+                 if p == Shard(0) and not isinstance(tok.placements[i], Shard)]
+    w_pl = tuple(Shard(0) if i in rows_dims else Replicate() for i in range(mesh.ndim))
+    tok_pl = tuple(Replicate() if i in rows_dims or not isinstance(p, Shard) else p
+                   for i, p in enumerate(tok.placements))
+    if any(isinstance(p, Shard) and p != q and mesh.size(i) > 1
+           for i, (p, q) in enumerate(zip(w.placements, w_pl))):
+        note_site("embedding")
+    grad_pl = [Shard(0) if i in rows_dims else Partial() if isinstance(tok_pl[i], Shard)
+               else Replicate() for i in range(mesh.ndim)]
+    wl = redistribute(w, w_pl).to_local(grad_placements=grad_pl)
+    tl = redistribute(tok, tok_pl).to_local()
+    n_rows, block = wl.shape[0], 0
+    for i in rows_dims:  # DTensor splits over mesh dims in order, major first
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    ids = tl.long() - block * n_rows
+    inside = (ids >= 0) & (ids < n_rows)
+    out = wl[ids.clamp(0, n_rows - 1)] * inside[..., None].to(wl.dtype)
+    if rows_dims:
+        out = _SumOverGroups.apply(out, [mesh.get_group(i) for i in rows_dims])
+    return DTensor.from_local(out, mesh, tok_pl, run_check=False)
+
+
+# ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
@@ -108,6 +189,22 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+
+
+def split_heads(x, heads: int, dh: int):
+    """(B, S, heads * dh) -> (B, S, heads, dh). A DTensor whose last dim is
+    split over mesh dims that do not divide ``heads`` would be cut inside a
+    head: it is gathered on that dim first (site "heads reshape")."""
+    b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                      if isinstance(p, Shard) and p.dim == last)
+        if heads % n:
+            note_site("heads reshape")
+            x = redistribute(x, [Replicate() if isinstance(p, Shard) and p.dim == last else p
+                                 for p in x.placements])
+    return x.reshape(b, s, heads, dh)
 
 
 def _expand_kv(k, n_heads: int):
@@ -278,7 +375,26 @@ def flash_attention(
     the JAX package's ``flash_attention`` and its custom VJP, tile for tile.
     Tiles only the causal / sliding-window reach of each q block; GQA
     expands K/V inside and folds the cotangents back onto the kv heads. A
-    tensor ``prefix_len`` gets no gradient."""
+    tensor ``prefix_len`` gets no gradient.
+
+    On DTensors it runs on each rank's batch rows and, when q, k and v
+    split their heads over the same mesh dims, on its local heads; any
+    other split (a sequence split, heads that do not divide) is gathered
+    (site "attention")."""
+    if isinstance(q, DTensor):
+        def heads(t):
+            return [isinstance(p, Shard) and p.dim == 2 for p in t.placements]
+
+        per_row = isinstance(prefix_len, DTensor)  # a (B,) prefix goes with the rows
+
+        def local(q_, k_, v_, *pl):
+            return flash_attention(q_, k_, v_, causal=causal, window=window,
+                                   prefix_len=pl[0] if per_row else prefix_len,
+                                   q_offset=q_offset, kv_block=kv_block, scale=scale)
+
+        aligned = heads(q) == heads(k) == heads(v)
+        return run_local("attention", local, (q, k, v) + ((prefix_len,) if per_row else ()),
+                         keep=(0, 2) if aligned else (0,))
     d = q.shape[-1]
     scale = (d**-0.5) if scale is None else scale
     if isinstance(prefix_len, torch.Tensor):
@@ -330,6 +446,13 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, gated: bool,
     return p
 
 
+def mlp_axes(gated: bool) -> dict:
+    p = {"wi": ("embed", "ffn"), "wo": ("ffn", "embed")}
+    if gated:
+        p["wg"] = ("embed", "ffn")
+    return p
+
+
 def mlp_apply(params: dict, x: torch.Tensor, act: str = "gelu", gated: bool = False):
     a = ACTIVATIONS[act]
     h = x @ params["wi"]
@@ -345,12 +468,18 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str = "gelu", gated: bool = Fa
 # ---------------------------------------------------------------------------
 
 
-def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
-    """logits (..., V) float, targets (...) int -> mean xent."""
+def _nll(logits, targets):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+    """logits (..., V) float, targets (...) int -> mean xent. On DTensors
+    the per-position loss runs on each rank's positions with the vocab
+    gathered (site "cross-entropy")."""
+    nll = run_local("cross-entropy", _nll, (logits, targets), keep=range(logits.ndim - 1))
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()

@@ -135,6 +135,19 @@ def apply_block_with_state(cfg: Mamba2Config, p: Dict, x: torch.Tensor):
     return y @ p["out_proj"], hstate, xbc_raw[:, -(cfg.d_conv - 1):]
 
 
+def block_axes(cfg: Mamba2Config) -> Dict:
+    return {
+        "in_proj": ("layers", "embed", "inner_proj"),
+        "conv_w": ("layers", None, "inner_conv"),
+        "conv_b": ("layers", "inner_conv"),
+        "A_log": ("layers", "ssm_heads"),
+        "D": ("layers", "ssm_heads"),
+        "dt_bias": ("layers", "ssm_heads"),
+        "norm": ("layers", "inner"),
+        "out_proj": ("layers", "inner", "embed"),
+    }
+
+
 def apply_block(cfg: Mamba2Config, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """The mixer over a sequence. x (B, S, d_model)."""
     return apply_block_with_state(cfg, p, x)[0]
@@ -151,6 +164,10 @@ def init_state(cfg: Mamba2Config, batch: int, dtype, device) -> Dict:
         "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.conv_channels), dtype=dtype,
                             device=device),
     }
+
+
+def state_axes(cfg: Mamba2Config) -> Dict:
+    return {"ssm": ("batch", "ssm_heads", None, None), "conv": ("batch", None, "inner_conv")}
 
 
 def decode_block(cfg: Mamba2Config, p: Dict, state: Dict, x: torch.Tensor):

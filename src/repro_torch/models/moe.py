@@ -3,9 +3,12 @@
 Counterpart of ``repro.models.moe``: token-choice top-k routing with a
 capacity and sort-based dispatch into fixed ``(E, C, d)`` buffers, the
 expert FFNs as batched matmuls over every slot, and the attention stack
-of the dense transformer. Only the single-device dispatch is ported; the
-all-to-all dispatch (``a2a_dispatch``) waits for the parallelism port, and
-the reference also ignores it without a mesh.
+of the dense transformer. With ``a2a_dispatch`` and a sharder that
+carries a mesh, ``moe_apply`` takes the local-routing all-to-all dispatch
+of ``moe_a2a``; without a mesh the dispatch is global, as the reference's.
+On DTensors the global dispatch routes every token on every rank (its
+sort, search and scatter have no DTensor rule: sites "moe dispatch" and
+"moe combine") and runs the expert matmuls on the sharder's layout.
 
 Two choices keep the result the same on every device and run: top-k
 breaks ties toward the lower expert index, as ``jax.lax.top_k`` does
@@ -23,9 +26,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import run_local
 from . import layers as L
 from . import transformer as T
-from .transformer import TransformerConfig
+from .transformer import Sharder, TransformerConfig, _id_sharder
 
 
 @dataclass(frozen=True)
@@ -38,7 +42,7 @@ class MoEConfig(TransformerConfig):
     #: split into ``expert_shards`` parts along d_ff, giving
     #: n_experts * expert_shards units
     expert_shards: int = 1
-    #: local routing + all-to-all dispatch; needs a mesh (parallelism port)
+    #: local routing + all-to-all dispatch (``moe_a2a``); needs a mesh
     a2a_dispatch: bool = False
 
     @property
@@ -100,6 +104,19 @@ def init_params(cfg: MoEConfig, generator: torch.Generator, device: DeviceLike =
 params_from_jax_numpy = T.params_from_jax_numpy  # keeps the float32 router
 
 
+def param_axes(cfg: MoEConfig) -> Dict:
+    axes = T.param_axes(cfg)
+    moe = {
+        "router": ("layers", "embed", None),
+        "wi": ("layers", "expert", "embed", "ffn"),
+        "wo": ("layers", "expert", "ffn", "embed"),
+    }
+    if cfg.gated:
+        moe["wg"] = ("layers", "expert", "embed", "ffn")
+    axes["layers"]["mlp"] = moe
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # MoE FFN: token-choice top-k with capacity
 # ---------------------------------------------------------------------------
@@ -144,34 +161,43 @@ def route(cfg: MoEConfig, router: torch.Tensor, xf: torch.Tensor) -> Routing:
     return Routing(probs, topv, topi, order, sorted_e, rank, capacity)
 
 
-def moe_apply(cfg: MoEConfig, p: Dict, x: torch.Tensor):
-    """x (B, S, d) -> (out (B, S, d), aux_loss scalar), the reference's
-    ``moe_apply`` without a mesh."""
-    b, s, d = x.shape
-    n_tok = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    xf = x.reshape(n_tok, d)
-    r = route(cfg, p["router"], xf)
+def dispatch(cfg: MoEConfig, router: torch.Tensor, xf: torch.Tensor):
+    """Route ``xf`` (T, d) and scatter it into the expert buffers: returns
+    (routing, dest, buf (Ev, C, d)). ``dest`` is each sorted slot's row in
+    the flat buffer; a slot past its expert's capacity goes to a spare last
+    row, which is dropped."""
+    e, k, d = cfg.n_experts, cfg.top_k, xf.shape[1]
+    r = route(cfg, router, xf)
     cap = r.capacity
-    # dispatch into (E, C, d); a slot past its expert's capacity goes to a
-    # spare last row, which is dropped
     dest = torch.where(r.kept, r.sorted_e * cap + r.rank, e * cap)
     buf = xf.new_zeros((e * cap + 1, d)).index_put((dest,), xf[r.order // k])
     buf = buf[:-1].view(e, cap, d)
     if cfg.expert_shards > 1:
         # virtual experts: every token buffer feeds its expert's FFN shards
         buf = buf.repeat_interleave(cfg.expert_shards, dim=0)  # (Ev, C, d)
-    h = torch.bmm(buf, p["wi"])
+    return r, dest, buf
+
+
+def experts(cfg: MoEConfig, buf, wi, wo, wg=None):
+    """The expert FFNs over every slot: (Ev, C, d) -> (Ev, C, d)."""
+    h = torch.bmm(buf, wi)
     if cfg.gated:
-        h = L.ACTIVATIONS[cfg.act](torch.bmm(buf, p["wg"])) * h
+        h = L.ACTIVATIONS[cfg.act](torch.bmm(buf, wg)) * h
     else:
         h = L.ACTIVATIONS[cfg.act](h)
-    y = torch.bmm(h, p["wo"])
+    return torch.bmm(h, wo)
+
+
+def combine(cfg: MoEConfig, y, r: Routing, dest):
+    """Expert outputs y (Ev, C, d) back to tokens: (out (T, d), aux)."""
+    e, k = cfg.n_experts, cfg.top_k
+    cap, d = r.capacity, y.shape[-1]
+    n_tok = r.topi.shape[0]
     if cfg.expert_shards > 1:
         # partial outputs of the ff shards sum back to real experts
         y = y.view(e, cfg.expert_shards, cap, d).sum(1)
-    # combine: each sorted slot's expert output (0 where dropped), weighted,
-    # back at its (token, choice) position, then summed over the choices
+    # each sorted slot's expert output (0 where dropped), weighted, back at
+    # its (token, choice) position, then summed over the choices
     y = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
     w = r.topv.reshape(-1)[r.order].to(y.dtype)
     weighted = y[dest] * w[:, None]
@@ -181,6 +207,37 @@ def moe_apply(cfg: MoEConfig, p: Dict, x: torch.Tensor):
     dispatch_frac = torch.nn.functional.one_hot(r.topi, e).float().sum(1).mean(0)
     prob_frac = r.probs.mean(0)
     aux = e * torch.sum(dispatch_frac / k * prob_frac)
+    return out, aux
+
+
+def moe_apply(cfg: MoEConfig, p: Dict, x: torch.Tensor, sharder: Sharder = _id_sharder):
+    """x (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+    mesh = getattr(sharder, "mesh", None)
+    if cfg.a2a_dispatch and mesh is not None:
+        from .moe_a2a import moe_apply_a2a
+
+        zero = "data" if getattr(sharder, "zero_params", False) else None
+        return moe_apply_a2a(cfg, p, x, mesh, zero_axis=zero)
+    # ZeRO-3 (zero_params) stores expert weights data-sharded: constrain the
+    # layer's slice to its tensor-parallel layout here, once per layer
+    p = dict(p)
+    for key in ("wi", "wg"):
+        if key in p:
+            p[key] = sharder(p[key], ("expert", "embed", "ffn"))
+    p["wo"] = sharder(p["wo"], ("expert", "ffn", "embed"))
+    b, s, d = x.shape
+    routed = {}
+
+    def dispatch_all(x_, w):
+        routed["r"], routed["dest"], buf_ = dispatch(cfg, w["router"], x_.reshape(b * s, d))
+        return buf_
+
+    buf = run_local("moe dispatch", dispatch_all, (x,), keep=(), params={"router": p["router"]})
+    buf = sharder(buf, ("expert", "capacity", "embed"))
+    y = experts(cfg, buf, p["wi"], p["wo"], p.get("wg"))
+    y = sharder(y, ("expert", "capacity", "embed"))
+    out, aux = run_local("moe combine", lambda y_: combine(cfg, y_, routed["r"], routed["dest"]),
+                         (y,), keep=())
     return out.view(b, s, d), aux
 
 
@@ -189,16 +246,18 @@ def moe_apply(cfg: MoEConfig, p: Dict, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg, lp, x, positions, prefix_len):
+def _block(cfg, lp, x, positions, prefix_len, sharder: Sharder = _id_sharder):
     a, kv = T._attn_block(cfg, lp["attn"], T._apply_norm(cfg, lp["ln1"], x), positions,
-                          prefix_len)
+                          prefix_len, sharder)
     x = x + a
-    m, aux = moe_apply(cfg, lp["mlp"], T._apply_norm(cfg, lp["ln2"], x))
+    x = sharder(x, ("batch", "seq", "embed"))
+    m, aux = moe_apply(cfg, lp["mlp"], T._apply_norm(cfg, lp["ln2"], x), sharder)
+    m = sharder(m, ("batch", "seq", "embed"))
     return x + m, kv, aux
 
 
 def forward(cfg: MoEConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
-            prefix_len=None, collect_kv: bool = False):
+            prefix_len=None, sharder: Sharder = _id_sharder, collect_kv: bool = False):
     """x (B, S, d) -> (final-normed hidden, mean aux loss over layers,
     stacked (k, v) when ``collect_kv``); remat as the dense forward."""
     remat = cfg.remat and torch.is_grad_enabled()
@@ -206,10 +265,10 @@ def forward(cfg: MoEConfig, params: Dict, x: torch.Tensor, positions: torch.Tens
     ks, vs = [], []
     for lp in T._layers(params["layers"], cfg.n_layers):
         if remat:
-            x, (k, v), aux = checkpoint(_block, cfg, lp, x, positions, prefix_len,
+            x, (k, v), aux = checkpoint(_block, cfg, lp, x, positions, prefix_len, sharder,
                                         use_reentrant=False)
         else:
-            x, (k, v), aux = _block(cfg, lp, x, positions, prefix_len)
+            x, (k, v), aux = _block(cfg, lp, x, positions, prefix_len, sharder)
         aux_sum = aux_sum + aux
         if collect_kv:
             ks.append(k)
@@ -219,11 +278,12 @@ def forward(cfg: MoEConfig, params: Dict, x: torch.Tensor, positions: torch.Tens
     return h, aux_sum / cfg.n_layers, kvs
 
 
-def loss_fn(cfg: MoEConfig, params, batch) -> torch.Tensor:
+def loss_fn(cfg: MoEConfig, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = T.embed_tokens(cfg, params, tokens)
-    h, aux, _ = forward(cfg, params, x, T._positions(b, s, tokens.device))
+    x = sharder(x, ("batch", "seq", "embed"))
+    h, aux, _ = forward(cfg, params, x, T._positions(b, s, tokens.device), sharder=sharder)
     logits = T.logits_from_hidden(cfg, params, h[:, :-1])
     return (L.softmax_xent(logits, tokens[:, 1:], batch.get("loss_mask"))
             + cfg.aux_loss_weight * aux)
@@ -233,15 +293,18 @@ init_cache = T.init_cache
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = T.embed_tokens(cfg, params, tokens)
-    h, _aux, kvs = forward(cfg, params, x, T._positions(b, s, tokens.device), collect_kv=True)
+    h, _aux, kvs = forward(cfg, params, x, T._positions(b, s, tokens.device), sharder=sharder,
+                           collect_kv=True)
     return T.logits_from_hidden(cfg, params, h[:, -1:]), T.fill_cache(cache, kvs, s)
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
+    """One token per sequence; as the reference's, the MoE layers run with
+    the identity sharder."""
     return T.decode_layers(cfg, params, cache, tokens,
                            lambda lp, h: moe_apply(cfg, lp["mlp"], h)[0])

@@ -16,6 +16,7 @@ import torch
 
 from . import layers as L
 from . import transformer as T
+from .transformer import Sharder, _id_sharder
 
 
 @dataclass(frozen=True)
@@ -33,7 +34,9 @@ def make_config(name: str, **kw) -> PaliGemmaConfig:
 
 
 init_params = T.init_params
+param_axes = T.param_axes
 init_cache = T.init_cache
+cache_axes = T.cache_axes
 
 
 def _embed_multimodal(cfg, params, batch) -> torch.Tensor:
@@ -43,25 +46,27 @@ def _embed_multimodal(cfg, params, batch) -> torch.Tensor:
     return torch.cat([patches, text], dim=1)
 
 
-def loss_fn(cfg: PaliGemmaConfig, params, batch) -> torch.Tensor:
+def loss_fn(cfg: PaliGemmaConfig, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
     """Next-token loss on the text suffix only: positions p .. s-2 predict
     tokens[1:] (tokens[0] is given)."""
     x = _embed_multimodal(cfg, params, batch)
     b, s, _ = x.shape
     p = batch["patch_embeds"].shape[1]
-    h, _ = T.forward(cfg, params, x, T._positions(b, s, x.device), prefix_len=p)
+    x = sharder(x, ("batch", None, "embed"))
+    h, _ = T.forward(cfg, params, x, T._positions(b, s, x.device), prefix_len=p,
+                     sharder=sharder)
     logits = T.logits_from_hidden(cfg, params, h[:, p:-1])
     return L.softmax_xent(logits, batch["tokens"][:, 1:], batch.get("loss_mask"))
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     """Multimodal prompt (patch_embeds + tokens) -> last logits, cache."""
     x = _embed_multimodal(cfg, params, batch)
     b, s, _ = x.shape
     p = batch["patch_embeds"].shape[1]
     h, kvs = T.forward(cfg, params, x, T._positions(b, s, x.device), prefix_len=p,
-                       collect_kv=True)
+                       sharder=sharder, collect_kv=True)
     return T.logits_from_hidden(cfg, params, h[:, -1:]), T.fill_cache(cache, kvs, s)
 
 

@@ -29,8 +29,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import run_local
 from . import layers as L
 from . import transformer as T
+from .transformer import Sharder, _id_sharder
 
 
 @dataclass(frozen=True)
@@ -182,7 +184,31 @@ def _head_norm(cfg, y, scale):
     return y.to(scale.dtype) * scale
 
 
-def time_mix_with_state(cfg: RWKV6Config, p: Dict, x: torch.Tensor):
+def param_axes(cfg: RWKV6Config) -> Dict:
+    vec = ("layers", "embed")
+    mat = ("layers", "embed", "embed_out")
+    tm = {
+        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_w": vec, "mu_g": vec,
+        "wr": mat, "wk": mat, "wv": mat, "wg": mat, "wo": mat,
+        "w0": vec, "wA": ("layers", "embed", None), "wB": ("layers", None, "embed"),
+        "u": vec, "ln_x": vec,
+    }
+    cm = {
+        "mu_k": vec, "mu_r": vec,
+        "wk": ("layers", "embed", "ffn"), "wv": ("layers", "ffn", "embed"),
+        "wr": mat,
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "ln_in": ("embed",),
+        "layers": {"ln1": vec, "tm": tm, "ln2": vec, "cm": cm},
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def time_mix_with_state(cfg: RWKV6Config, p: Dict, x: torch.Tensor,
+                        sharder: Sharder = _id_sharder):
     """Time-mix over a sequence x (B, S, d) -> (out (B, S, d), final WKV
     state (B, H, D, D) float32)."""
     b, s, _ = x.shape
@@ -193,15 +219,17 @@ def time_mix_with_state(cfg: RWKV6Config, p: Dict, x: torch.Tensor):
     v = _mix(x, xp, p["mu_v"]) @ p["wv"]
     g = _mix(x, xp, p["mu_g"]) @ p["wg"]
     logw = _log_decay(p, _mix(x, xp, p["mu_w"]))
-    y, state = _wkv6_chunked(cfg, r.reshape(b, s, h, dd), k.reshape(b, s, h, dd),
+    rs = sharder(r.reshape(b, s, h, dd), ("batch", None, "heads", None))
+    y, state = _wkv6_chunked(cfg, rs, k.reshape(b, s, h, dd),
                              v.reshape(b, s, h, dd), logw.reshape(b, s, h, dd),
                              p["u"].reshape(h, dd))
     y = _head_norm(cfg, y, p["ln_x"]) * F.silu(g)
     return y.to(x.dtype) @ p["wo"], state
 
 
-def time_mix(cfg: RWKV6Config, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return time_mix_with_state(cfg, p, x)[0]
+def time_mix(cfg: RWKV6Config, p: Dict, x: torch.Tensor,
+             sharder: Sharder = _id_sharder) -> torch.Tensor:
+    return time_mix_with_state(cfg, p, x, sharder)[0]
 
 
 def channel_mix(cfg: RWKV6Config, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -215,27 +243,36 @@ def channel_mix(cfg: RWKV6Config, p: Dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layer(cfg, lp, h):
-    h = h + time_mix(cfg, lp["tm"], L.rmsnorm(h, lp["ln1"]))
-    return h + channel_mix(cfg, lp["cm"], L.rmsnorm(h, lp["ln2"]))
+def _layer(cfg, lp, h, sharder: Sharder = _id_sharder):
+    """One layer. On DTensors each mix runs on each rank's batch rows with
+    its weights gathered: the token shift, the WKV6 scan and the head norm
+    have no DTensor rule (sites "rwkv6 time-mix", "rwkv6 channel-mix")."""
+    h = h + run_local("rwkv6 time-mix", lambda x, p: time_mix(cfg, p, x, sharder),
+                      (L.rmsnorm(h, lp["ln1"]),), keep=(0,), params=lp["tm"])
+    h = h + run_local("rwkv6 channel-mix", lambda x, p: channel_mix(cfg, p, x),
+                      (L.rmsnorm(h, lp["ln2"]),), keep=(0,), params=lp["cm"])
+    return sharder(h, ("batch", "seq", "embed"))
 
 
-def forward(cfg: RWKV6Config, params: Dict, x: torch.Tensor) -> torch.Tensor:
+def forward(cfg: RWKV6Config, params: Dict, x: torch.Tensor,
+            sharder: Sharder = _id_sharder) -> torch.Tensor:
     """x (B, S, d) input-normed embeddings -> final-normed hidden; each layer
     under ``torch.utils.checkpoint`` with ``cfg.remat`` and gradients on."""
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in T._layers(params["layers"], cfg.n_layers):
-        x = checkpoint(_layer, cfg, lp, x, use_reentrant=False) if remat else _layer(cfg, lp, x)
+        x = (checkpoint(_layer, cfg, lp, x, sharder, use_reentrant=False) if remat
+             else _layer(cfg, lp, x, sharder))
     return L.rmsnorm(x, params["final_norm"])
 
 
 def _embed(params, tokens):
-    return L.rmsnorm(params["embed"][tokens.long()], params["ln_in"])
+    return L.rmsnorm(L.embed(params["embed"], tokens), params["ln_in"])
 
 
-def loss_fn(cfg: RWKV6Config, params, batch) -> torch.Tensor:
+def loss_fn(cfg: RWKV6Config, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
     tokens = batch["tokens"]
-    h = forward(cfg, params, _embed(params, tokens))
+    x = sharder(_embed(params, tokens), ("batch", "seq", "embed"))
+    h = forward(cfg, params, x, sharder)
     logits = h[:, :-1] @ params["lm_head"]
     return L.softmax_xent(logits, tokens[:, 1:], batch.get("loss_mask"))
 
@@ -243,6 +280,15 @@ def loss_fn(cfg: RWKV6Config, params, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # serving: recurrent state only, no KV cache
 # ---------------------------------------------------------------------------
+
+
+def cache_axes(cfg: RWKV6Config) -> Dict:
+    return {
+        "wkv": ("layers", "batch", "heads", None, None),
+        "x_tm": ("layers", "batch", "embed"),
+        "x_cm": ("layers", "batch", "embed"),
+        "length": ("batch",),
+    }
 
 
 def init_cache(cfg: RWKV6Config, batch: int, max_len: int = 0,
@@ -285,7 +331,7 @@ def _cm_step(cfg, p, x, x_prev):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
     """One token per sequence; the state is updated in place.
     tokens (B,) -> logits (B, V), cache."""
     h = _embed(params, tokens)  # (B, d)
@@ -302,7 +348,7 @@ def decode_step(cfg, params, cache, tokens):
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     """The prompt through the chunked form; the final recurrent states go
     into the cache in place. Returns the last position's logits (B, 1, V)."""
     tokens = batch["tokens"]

@@ -11,7 +11,7 @@ functionally.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
+
+Sharder = Callable[[torch.Tensor, Tuple[Optional[str], ...]], torch.Tensor]
+
+
+def _id_sharder(x, axes):
+    return x
 
 
 @dataclass(frozen=True)
@@ -69,6 +75,12 @@ def _norm_init(cfg, shape):
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(shape, dtype=cfg.dtype)
     return p
+
+
+def _norm_axes(cfg, names):
+    if cfg.norm == "layernorm":
+        return {"scale": names, "bias": names}
+    return {"scale": names}
 
 
 def _apply_norm(cfg, p, x):
@@ -124,6 +136,28 @@ def init_tree(cfg: TransformerConfig, w, mlp: Dict) -> Dict:
     return params
 
 
+def param_axes(cfg: TransformerConfig) -> Dict:
+    """Logical dimension names per leaf (consumed by the sharding rules)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "ln1": _norm_axes(cfg, ("layers", "embed")),
+            "attn": {
+                "wq": ("layers", "embed", "heads"),
+                "wk": ("layers", "embed", "kv_heads"),
+                "wv": ("layers", "embed", "kv_heads"),
+                "wo": ("layers", "heads", "embed"),
+            },
+            "ln2": _norm_axes(cfg, ("layers", "embed")),
+            "mlp": {k: ("layers",) + v for k, v in L.mlp_axes(cfg.gated).items()},
+        },
+        "final_norm": _norm_axes(cfg, ("embed",)),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def params_from_jax_numpy(cfg: TransformerConfig, tree: Dict,
                           device: DeviceLike = "cuda") -> Dict:
     """The port's params from a JAX param tree whose leaves are numpy arrays
@@ -161,35 +195,39 @@ def _layers(params: Dict, n: int) -> List[Dict]:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg, p, x, positions):
-    b, s, _ = x.shape
+def _qkv(cfg, p, x, positions, sharder: Sharder = _id_sharder):
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
-    q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (x @ p["wk"]).reshape(b, s, kv, dh)
-    v = (x @ p["wv"]).reshape(b, s, kv, dh)
+    q = L.split_heads(x @ p["wq"], h, dh)
+    k = L.split_heads(x @ p["wk"], kv, dh)
+    v = L.split_heads(x @ p["wv"], kv, dh)
+    q = sharder(q, ("batch", None, "heads", None))
+    k = sharder(k, ("batch", None, "kv_heads", None))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(cfg, p, x, positions, prefix_len):
+def _attn_block(cfg, p, x, positions, prefix_len, sharder: Sharder = _id_sharder):
     """Self-attention of normed input x (B, S, d) -> (out (B, S, d), (k, v));
     shared by the dense and MoE blocks."""
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv(cfg, p, x, positions, sharder)
     o = L.flash_attention(q, k, v, causal=True, window=cfg.window, prefix_len=prefix_len)
     return o.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
-def _block(cfg, lp, x, positions, prefix_len):
-    a, kv = _attn_block(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions, prefix_len)
+def _block(cfg, lp, x, positions, prefix_len, sharder: Sharder = _id_sharder):
+    a, kv = _attn_block(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions, prefix_len,
+                        sharder)
     x = x + a
+    x = sharder(x, ("batch", "seq", "embed"))
     m = L.mlp_apply(lp["mlp"], _apply_norm(cfg, lp["ln2"], x), cfg.act, cfg.gated)
+    m = sharder(m, ("batch", "seq", "embed"))
     return x + m, kv
 
 
 def forward(cfg: TransformerConfig, params: Dict, x: torch.Tensor, positions: torch.Tensor,
-            prefix_len=None, collect_kv: bool = False):
+            prefix_len=None, sharder: Sharder = _id_sharder, collect_kv: bool = False):
     """x (B, S, d) embedded input -> final-normed hidden (B, S, d), and the
     per-layer (k, v) stacked to (L, B, S, KVH, Dh) when ``collect_kv``.
 
@@ -201,10 +239,10 @@ def forward(cfg: TransformerConfig, params: Dict, x: torch.Tensor, positions: to
     ks, vs = [], []
     for lp in _layers(params["layers"], cfg.n_layers):
         if remat:
-            x, (k, v) = checkpoint(_block, cfg, lp, x, positions, prefix_len,
+            x, (k, v) = checkpoint(_block, cfg, lp, x, positions, prefix_len, sharder,
                                    use_reentrant=False)
         else:
-            x, (k, v) = _block(cfg, lp, x, positions, prefix_len)
+            x, (k, v) = _block(cfg, lp, x, positions, prefix_len, sharder)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -214,7 +252,7 @@ def forward(cfg: TransformerConfig, params: Dict, x: torch.Tensor, positions: to
 
 
 def embed_tokens(cfg, params, tokens):
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype).sqrt()
     return x
@@ -229,12 +267,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def loss_fn(cfg: TransformerConfig, params, batch) -> torch.Tensor:
+def loss_fn(cfg: TransformerConfig, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
     tokens = batch["tokens"]  # (B, S)
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
+    x = sharder(x, ("batch", "seq", "embed"))
     h, _ = forward(cfg, params, x, _positions(b, s, tokens.device),
-                   prefix_len=batch.get("prefix_len"))
+                   prefix_len=batch.get("prefix_len"), sharder=sharder)
     logits = logits_from_hidden(cfg, params, h[:, :-1])
     return L.softmax_xent(logits, tokens[:, 1:], batch.get("loss_mask"))
 
@@ -242,6 +281,14 @@ def loss_fn(cfg: TransformerConfig, params, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # serving: prefill + dense-cache decode
 # ---------------------------------------------------------------------------
+
+
+def cache_axes(cfg: TransformerConfig) -> Dict:
+    return {
+        "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "length": ("batch",),
+    }
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -256,7 +303,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     """Run the prompt through the model, fill the cache (in place), return
     the last position's logits (B, 1, V) and the cache. No gradients: the
     serving path never takes the remat wrapper."""
@@ -264,7 +311,7 @@ def prefill(cfg, params, batch, cache):
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     h, kvs = forward(cfg, params, x, _positions(b, s, tokens.device),
-                     prefix_len=batch.get("prefix_len"), collect_kv=True)
+                     prefix_len=batch.get("prefix_len"), sharder=sharder, collect_kv=True)
     return logits_from_hidden(cfg, params, h[:, -1:]), fill_cache(cache, kvs, s)
 
 
@@ -279,9 +326,10 @@ def fill_cache(cache, kvs, s: int):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
     """One token per sequence through the dense KV cache (updated in place).
-    tokens: (B,) -> logits (B, V), cache."""
+    tokens: (B,) -> logits (B, V), cache. Like the reference's, the decode
+    step constrains no activation: ``sharder`` is accepted and unused."""
     return decode_layers(cfg, params, cache, tokens,
                          lambda lp, h: L.mlp_apply(lp["mlp"], h, cfg.act, cfg.gated))
 

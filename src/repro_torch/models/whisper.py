@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from . import transformer as T
+from .transformer import Sharder, _id_sharder
 
 
 @dataclass(frozen=True)
@@ -97,6 +98,27 @@ params_from_jax_numpy = T.params_from_jax_numpy
 # ---------------------------------------------------------------------------
 
 
+def param_axes(cfg: WhisperConfig) -> Dict:
+    ln = {"scale": ("layers", "embed"), "bias": ("layers", "embed")}
+    ln1 = {"scale": ("embed",), "bias": ("embed",)}
+    attn = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+    }
+    mlp = {"wi": ("layers", "embed", "ffn"), "wo": ("layers", "ffn", "embed")}
+    return {
+        "encoder": {"ln1": ln, "attn": attn, "ln2": ln, "mlp": mlp, "ln_post": ln1},
+        "decoder": {
+            "embed": ("vocab", "embed"),
+            "pos": ("position", "embed"),
+            "ln1": ln, "self_attn": attn, "ln_x": ln, "cross_attn": attn,
+            "ln2": ln, "mlp": mlp, "ln_post": ln1,
+        },
+    }
+
+
 def _ln(p, x):
     return L.layernorm(x, p["scale"], p["bias"])
 
@@ -105,9 +127,9 @@ def _proj_qkv(cfg, p, xq, xkv):
     b, sq, _ = xq.shape
     skv = xkv.shape[1]
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
-    q = (xq @ p["wq"]).reshape(b, sq, h, dh)
-    k = (xkv @ p["wk"]).reshape(b, skv, kv, dh)
-    v = (xkv @ p["wv"]).reshape(b, skv, kv, dh)
+    q = L.split_heads(xq @ p["wq"], h, dh)
+    k = L.split_heads(xkv @ p["wk"], kv, dh)
+    v = L.split_heads(xkv @ p["wv"], kv, dh)
     return q, k, v
 
 
@@ -135,27 +157,28 @@ def _sinusoid(s: int, d: int, dtype, device):
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
-def _enc_layer(cfg, lp, h):
+def _enc_layer(cfg, lp, h, sharder: Sharder = _id_sharder):
     xin = _ln(lp["ln1"], h)
     a, _ = _attn(cfg, lp["attn"], xin, xin, causal=False)
     h = h + a
-    return h + _mlp(cfg, lp["mlp"], _ln(lp["ln2"], h))
+    return sharder(h + _mlp(cfg, lp["mlp"], _ln(lp["ln2"], h)), ("batch", "seq", "embed"))
 
 
-def _dec_layer(cfg, lp, h, memory):
+def _dec_layer(cfg, lp, h, memory, sharder: Sharder = _id_sharder):
     xin = _ln(lp["ln1"], h)
     a, kv = _attn(cfg, lp["self_attn"], xin, xin, causal=True)
     h = h + a
     c, ckv = _attn(cfg, lp["cross_attn"], _ln(lp["ln_x"], h), memory, causal=False)
     h = h + c
-    return h + _mlp(cfg, lp["mlp"], _ln(lp["ln2"], h)), kv, ckv
+    return sharder(h + _mlp(cfg, lp["mlp"], _ln(lp["ln2"], h)), ("batch", "seq", "embed")), kv, ckv
 
 
 def _stack(p, keys, n):
     return T._layers({k: p[k] for k in keys}, n)
 
 
-def encode(cfg: WhisperConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: WhisperConfig, params, frames: torch.Tensor,
+           sharder: Sharder = _id_sharder) -> torch.Tensor:
     """frames (B, S, d) (the conv front end's stub output) -> memory (B, S, d);
     each layer under ``torch.utils.checkpoint`` with ``cfg.remat`` and
     gradients on."""
@@ -163,26 +186,27 @@ def encode(cfg: WhisperConfig, params, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(cfg.dtype) + _sinusoid(frames.shape[1], cfg.d_model, cfg.dtype, frames.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in _stack(p, ("ln1", "attn", "ln2", "mlp"), cfg.n_layers):
-        x = checkpoint(_enc_layer, cfg, lp, x, use_reentrant=False) if remat else \
-            _enc_layer(cfg, lp, x)
+        x = checkpoint(_enc_layer, cfg, lp, x, sharder, use_reentrant=False) if remat else \
+            _enc_layer(cfg, lp, x, sharder)
     return _ln(p["ln_post"], x)
 
 
 def decode_train(cfg: WhisperConfig, params, tokens: torch.Tensor, memory: torch.Tensor,
-                 collect_kv: bool = False):
+                 sharder: Sharder = _id_sharder, collect_kv: bool = False):
     """Teacher-forced decoder over ``tokens`` (B, S) -> logits (B, S, V) and,
     with ``collect_kv``, ((k, v), (xk, xv)) stacked over layers to
     (L, B, S, KVH, Dh) and (L, B, S_frames, KVH, Dh)."""
     p = params["decoder"]
     s = tokens.shape[1]
-    x = p["embed"][tokens.long()] + p["pos"][:s]
+    x = L.embed(p["embed"], tokens) + p["pos"][:s]
     remat = cfg.remat and torch.is_grad_enabled()
     kvs, ckvs = [], []
     for lp in _stack(p, ("ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"), cfg.n_layers):
         if remat:
-            x, kv, ckv = checkpoint(_dec_layer, cfg, lp, x, memory, use_reentrant=False)
+            x, kv, ckv = checkpoint(_dec_layer, cfg, lp, x, memory, sharder,
+                                    use_reentrant=False)
         else:
-            x, kv, ckv = _dec_layer(cfg, lp, x, memory)
+            x, kv, ckv = _dec_layer(cfg, lp, x, memory, sharder)
         if collect_kv:
             kvs.append(kv)
             ckvs.append(ckv)
@@ -196,15 +220,25 @@ def decode_train(cfg: WhisperConfig, params, tokens: torch.Tensor, memory: torch
     return logits, (stacked(kvs), stacked(ckvs))
 
 
-def loss_fn(cfg: WhisperConfig, params, batch) -> torch.Tensor:
-    memory = encode(cfg, params, batch["frames"])
-    logits, _ = decode_train(cfg, params, batch["tokens"][:, :-1], memory)
+def loss_fn(cfg: WhisperConfig, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
+    memory = encode(cfg, params, batch["frames"], sharder)
+    logits, _ = decode_train(cfg, params, batch["tokens"][:, :-1], memory, sharder)
     return L.softmax_xent(logits, batch["tokens"][:, 1:], batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+
+
+def cache_axes(cfg: WhisperConfig) -> Dict:
+    return {
+        "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "xk": ("layers", "batch", "enc_seq", "kv_heads", None),
+        "xv": ("layers", "batch", "enc_seq", "kv_heads", None),
+        "length": ("batch",),
+    }
 
 
 def init_cache(cfg: WhisperConfig, batch: int, max_len: int, enc_len: int,
@@ -220,14 +254,15 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, enc_len: int,
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     """Encode the frames and run the decoder prompt; fills the self-KV cache
     in place, sets the static cross-KV and returns the last position's
     logits (B, 1, V)."""
-    memory = encode(cfg, params, batch["frames"])
+    memory = encode(cfg, params, batch["frames"], sharder)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    logits, ((k, v), (xk, xv)) = decode_train(cfg, params, tokens, memory, collect_kv=True)
+    logits, ((k, v), (xk, xv)) = decode_train(cfg, params, tokens, memory, sharder,
+                                              collect_kv=True)
     cache["k"][:, :, :s] = k
     cache["v"][:, :, :s] = v
     cache["xk"], cache["xv"] = xk.to(cfg.dtype), xv.to(cfg.dtype)
@@ -236,7 +271,7 @@ def prefill(cfg, params, batch, cache):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
     """One token per sequence; the self-KV cache is updated in place.
     tokens (B,) -> logits (B, V), cache."""
     p = params["decoder"]

@@ -16,9 +16,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import run_local
 from . import layers as L
 from . import mamba2 as M2
 from . import transformer as T
+from .transformer import Sharder, _id_sharder
 
 
 @dataclass(frozen=True)
@@ -119,54 +121,81 @@ def init_params(cfg: Zamba2Config, generator: torch.Generator,
 params_from_jax_numpy = T.params_from_jax_numpy
 
 
+def param_axes(cfg: Zamba2Config) -> Dict:
+    return {
+        "embed": ("vocab", "embed"),
+        "mamba": M2.block_axes(cfg.mamba),
+        "mamba_ln": ("layers", "embed"),
+        "shared": {
+            "ln1": ("embed",),
+            "attn": {
+                "wq": ("embed", "heads"),
+                "wk": ("embed", "kv_heads"),
+                "wv": ("embed", "kv_heads"),
+                "wo": ("heads", "embed"),
+            },
+            "ln2": ("embed",),
+            "mlp": L.mlp_axes(cfg.gated),
+        },
+        "final_norm": ("embed",),
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
-def _shared_attn(cfg, sp, x, positions):
+def _shared_attn(cfg, sp, x, positions, sharder: Sharder = _id_sharder):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
     xin = L.rmsnorm(x, sp["ln1"])
-    q = (xin @ sp["attn"]["wq"]).reshape(b, s, h, dh)
-    k = (xin @ sp["attn"]["wk"]).reshape(b, s, kv, dh)
-    v = (xin @ sp["attn"]["wv"]).reshape(b, s, kv, dh)
+    q = L.split_heads(xin @ sp["attn"]["wq"], h, dh)
+    k = L.split_heads(xin @ sp["attn"]["wk"], kv, dh)
+    v = L.split_heads(xin @ sp["attn"]["wv"], kv, dh)
+    q = sharder(q, ("batch", None, "heads", None))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = L.flash_attention(q, k, v, causal=True)
     x = x + o.reshape(b, s, h * dh) @ sp["attn"]["wo"]
     m = L.mlp_apply(sp["mlp"], L.rmsnorm(x, sp["ln2"]), cfg.act, cfg.gated)
-    return x + m, (k, v)
+    return x + sharder(m, ("batch", "seq", "embed")), (k, v)
 
 
-def _mamba_layer(cfg, lp, ln, x):
-    return x + M2.apply_block(cfg.mamba, lp, L.rmsnorm(x, ln))
+def _mamba_layer(cfg, lp, ln, x, sharder: Sharder = _id_sharder):
+    """One residual mixer layer. On DTensors the mixer (its projections'
+    splits, the causal conv, the chunked scan) runs on each rank's batch
+    rows with its weights gathered (site "mamba2 block")."""
+    y = run_local("mamba2 block", lambda x_, p: M2.apply_block(cfg.mamba, p, x_),
+                  (L.rmsnorm(x, ln),), keep=(0,), params=lp)
+    return sharder(x + y, ("batch", "seq", "embed"))
 
 
-def _mamba_group(cfg, layers, lns, x, lo: int, n: int):
+def _mamba_group(cfg, layers, lns, x, lo: int, n: int, sharder: Sharder = _id_sharder):
     """Layers ``lo .. lo + n - 1``; each under ``torch.utils.checkpoint``
     with ``cfg.remat`` and gradients enabled (the reference's
     ``jax.checkpoint`` around its scan body)."""
     remat = cfg.remat and torch.is_grad_enabled()
     for li in range(lo, lo + n):
         if remat:
-            x = checkpoint(_mamba_layer, cfg, layers[li], lns[li], x, use_reentrant=False)
+            x = checkpoint(_mamba_layer, cfg, layers[li], lns[li], x, sharder,
+                           use_reentrant=False)
         else:
-            x = _mamba_layer(cfg, layers[li], lns[li], x)
+            x = _mamba_layer(cfg, layers[li], lns[li], x, sharder)
     return x
 
 
 def forward(cfg: Zamba2Config, params: Dict, x: torch.Tensor, positions: torch.Tensor,
-            collect_kv: bool = False):
+            sharder: Sharder = _id_sharder, collect_kv: bool = False):
     """x (B, S, d) embedded -> final-normed hidden, and the shared block's
     (k, v) per application stacked to (A, B, S, KVH, Dh) when ``collect_kv``."""
     layers = T._layers(params["mamba"], cfg.n_layers)
     lns = params["mamba_ln"].unbind(0)
     kvs = []
     for lo, n, has_attn in cfg.groups:
-        x = _mamba_group(cfg, layers, lns, x, lo, n)
+        x = _mamba_group(cfg, layers, lns, x, lo, n, sharder)
         if has_attn:
-            x, kv = _shared_attn(cfg, params["shared"], x, positions)
+            x, kv = _shared_attn(cfg, params["shared"], x, positions, sharder)
             kvs.append(kv)
     x = L.rmsnorm(x, params["final_norm"])
     if collect_kv:
@@ -174,11 +203,12 @@ def forward(cfg: Zamba2Config, params: Dict, x: torch.Tensor, positions: torch.T
     return x, None
 
 
-def loss_fn(cfg: Zamba2Config, params, batch) -> torch.Tensor:
+def loss_fn(cfg: Zamba2Config, params, batch, sharder: Sharder = _id_sharder) -> torch.Tensor:
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
-    h, _ = forward(cfg, params, x, T._positions(b, s, tokens.device))
+    x = L.embed(params["embed"], tokens)
+    x = sharder(x, ("batch", "seq", "embed"))
+    h, _ = forward(cfg, params, x, T._positions(b, s, tokens.device), sharder)
     logits = h[:, :-1] @ params["embed"].T
     return L.softmax_xent(logits, tokens[:, 1:], batch.get("loss_mask"))
 
@@ -186,6 +216,16 @@ def loss_fn(cfg: Zamba2Config, params, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+
+
+def cache_axes(cfg: Zamba2Config) -> Dict:
+    return {
+        "k": (None, "batch", "kv_seq", "kv_heads", None),
+        "v": (None, "batch", "kv_seq", "kv_heads", None),
+        "ssm": ("layers", "batch", "ssm_heads", None, None),
+        "conv": ("layers", "batch", None, "inner_conv"),
+        "length": ("batch",),
+    }
 
 
 def init_cache(cfg: Zamba2Config, batch: int, max_len: int,
@@ -204,14 +244,14 @@ def init_cache(cfg: Zamba2Config, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, sharder: Sharder = _id_sharder):
     """The prompt through the chunked mixers, keeping each layer's final SSM
     and conv state, and the shared block's K/V per application; fills the
     cache in place and returns the last position's logits (B, 1, V)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = T._positions(b, s, tokens.device)
-    x = params["embed"][tokens.long()]
+    x = L.embed(params["embed"], tokens)
     layers = T._layers(params["mamba"], cfg.n_layers)
     app = 0
     for lo, n, has_attn in cfg.groups:
@@ -222,7 +262,7 @@ def prefill(cfg, params, batch, cache):
             cache["conv"][li] = cstate.to(cfg.dtype)
             x = x + y
         if has_attn:
-            x, (k, v) = _shared_attn(cfg, params["shared"], x, positions)
+            x, (k, v) = _shared_attn(cfg, params["shared"], x, positions, sharder)
             cache["k"][app, :, :s] = k
             cache["v"][app, :, :s] = v
             app += 1
@@ -232,11 +272,12 @@ def prefill(cfg, params, batch, cache):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens):
-    """One token per sequence; the cache is updated in place.
+def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
+    """One token per sequence; the cache is updated in place (``sharder``
+    is accepted and unused, as in the reference).
     tokens (B,) -> logits (B, V), cache."""
     lengths = cache["length"]
-    x = params["embed"][tokens.long()]  # (B, d)
+    x = L.embed(params["embed"], tokens)  # (B, d)
     layers = T._layers(params["mamba"], cfg.n_layers)
     app = 0
     for lo, n, has_attn in cfg.groups:

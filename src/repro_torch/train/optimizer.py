@@ -5,7 +5,10 @@ clip by the global norm, update the moments in float32, bias-correct from
 ``count``, decay every leaf, cast back to each leaf's dtype. The moment
 dtype is configurable (bf16 halves the optimizer's memory).
 ``torch.optim.AdamW`` differs in its defaults (no clipping, decay applied
-before the step), so it is not used.
+before the step), so it is not used. Moments reuse the params' logical axes
+(``opt_axes``), so ZeRO is a sharding decision, not another optimizer: on
+DTensor leaves every op runs on the local shards, and the global norm
+reduces over every shard to one replicated scalar.
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ def init(cfg: AdamWConfig, params) -> OptState:
     device = leaves(params)[0].device
     return OptState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                     count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def opt_axes(params_axes) -> OptState:
+    """Logical axes for the optimizer state mirror the params."""
+    return OptState(mu=params_axes, nu=params_axes, count=())
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -7,16 +7,28 @@ params and moments of the state it is given in place and returns them in a
 new ``TrainState``, as the reference's jitted step donates its state: the
 state passed in must not be used again. The supervisor re-enters the step
 with a state restored from a checkpoint, never with an earlier one.
+
+With a sharder that carries a mesh, the state's leaves are DTensors
+(placed by ``tree_shardings`` over ``state_axes``) and so is the batch
+(``batch_shardings``). The step then runs under DTensor's implicit
+replication, so the plain tensors the model code makes (positions, masks)
+act as replicated; each gradient is redistributed to its param's
+placements (a data-parallel gradient arrives as a partial sum), and the
+metrics are whole tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import DeviceLike, resolve_device
 from ..models.api import family_of
+from ..parallel.sharding import full, place_as, redistribute
 from ..tree import leaves, tree_map, unflatten_like
 from . import optimizer as opt
 
@@ -37,35 +49,72 @@ def init_state(cfg, adamw: opt.AdamWConfig, generator: torch.Generator,
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def make_train_step(cfg, adamw: opt.AdamWConfig, microbatches: int = 1) -> Callable:
+def state_axes(cfg) -> TrainState:
+    axes = family_of(cfg).param_axes(cfg)
+    return TrainState(params=axes, opt=opt.opt_axes(axes), step=())
+
+
+def _on_mesh(mesh):
+    return implicit_replication() if mesh is not None else contextlib.nullcontext()
+
+
+def _micro(v, microbatches: int, i: int):
+    """Rows [i * B/mb, (i + 1) * B/mb) of a batch entry, in its layout."""
+    rows = full(v)
+    piece = rows.reshape(microbatches, rows.shape[0] // microbatches, *rows.shape[1:])[i]
+    return place_as(piece, v) if isinstance(v, DTensor) else piece
+
+
+def make_train_step(cfg, adamw: opt.AdamWConfig, sharder=None,
+                    microbatches: int = 1) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``."""
     fam = family_of(cfg)
+    sharder = sharder or (lambda x, names: x)
+    mesh = getattr(sharder, "mesh", None)
 
     def loss_and_grads(params, batch):
         with torch.enable_grad():
             ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            loss = fam.loss_fn(cfg, ps, batch)
+            loss = fam.loss_fn(cfg, ps, batch, sharder=sharder)
             grads = torch.autograd.grad(loss, leaves(ps))
-        return loss.detach(), unflatten_like(params, list(grads))
+        grads = [redistribute(g, p.placements) if isinstance(g, DTensor) else g
+                 for g, p in zip(grads, leaves(params), strict=True)]
+        return full(loss.detach()), unflatten_like(params, grads)
 
     def train_step(state: TrainState, batch: Dict):
-        if microbatches == 1:
-            loss, grads = loss_and_grads(state.params, batch)
-        else:
-            # microbatch i is rows [i * B/mb, (i + 1) * B/mb) of every entry
-            mb = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
-                  for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, device=p.device), state.params)
-            lsum = torch.zeros((), device=state.step.device)
-            for i in range(microbatches):
-                l, g = loss_and_grads(state.params, {k: v[i] for k, v in mb.items()})
-                for a, b in zip(leaves(gsum), leaves(g), strict=True):
-                    a.add_(b.float())
-                lsum = lsum + l
-            grads = tree_map(lambda g: g / microbatches, gsum)
-            loss = lsum / microbatches
-        new_params, new_opt, metrics = opt.apply(adamw, state.params, grads, state.opt)
-        metrics["loss"] = loss
-        return TrainState(new_params, new_opt, state.step + 1), metrics
+        with _on_mesh(mesh):
+            if microbatches == 1:
+                loss, grads = loss_and_grads(state.params, batch)
+            else:
+                gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                state.params)
+                lsum = torch.zeros((), device=state.step.device)
+                for i in range(microbatches):
+                    micro = {k: _micro(v, microbatches, i) for k, v in batch.items()}
+                    l, g = loss_and_grads(state.params, micro)
+                    for a, b in zip(leaves(gsum), leaves(g), strict=True):
+                        a.add_(b.float())
+                    lsum = lsum + l
+                grads = tree_map(lambda g: g / microbatches, gsum)
+                loss = lsum / microbatches
+            new_params, new_opt, metrics = opt.apply(adamw, state.params, grads, state.opt)
+            metrics = {k: full(v) for k, v in metrics.items()}
+            metrics["loss"] = loss
+            return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def make_serve_steps(cfg, sharder=None):
+    """Returns (prefill_fn(params, batch, cache), decode_fn(params, cache,
+    tokens)), the two serving entry points."""
+    fam = family_of(cfg)
+    sharder = sharder or (lambda x, names: x)
+
+    def prefill_fn(params, batch, cache):
+        return fam.prefill(cfg, params, batch, cache, sharder=sharder)
+
+    def decode_fn(params, cache, tokens):
+        return fam.decode_step(cfg, params, cache, tokens, sharder=sharder)
+
+    return prefill_fn, decode_fn

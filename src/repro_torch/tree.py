@@ -10,7 +10,7 @@ checkpoints written by either package carry the same keys.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 def _is_namedtuple(x) -> bool:
@@ -46,14 +46,17 @@ def leaves(tree) -> List[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable[[Any], bool]] = None):
     """``fn`` applied leaf by leaf over trees of one structure, rebuilt in
-    the first tree's containers."""
-    if _is_leaf(tree):
+    the first tree's containers. ``is_leaf`` marks more nodes of the first
+    tree as leaves (an axes tree's name tuples)."""
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
-    mapped = [tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree)]
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in sorted(tree)}
+    mapped = [tree_map(fn, x, *(r[i] for r in rest), is_leaf=is_leaf)
+              for i, x in enumerate(tree)]
     if _is_namedtuple(tree):
         return type(tree)(*mapped)
     return type(tree)(mapped)

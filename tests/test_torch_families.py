@@ -235,7 +235,7 @@ def test_serve_launchers_refuse_the_new_families(arch):
 
 
 def test_serve_launcher_refuses_families_it_does_not_serve(monkeypatch):
-    ssm = api.Family("ssm", *[None] * 5)
+    ssm = api.Family("ssm", *[None] * 7)
     monkeypatch.setattr(serve, "family_of", lambda cfg: ssm)
     with pytest.raises(SystemExit, match="decoder-only families, got ssm"):
         serve.main(["--smoke", "--device", "cpu", "--requests", "1"])

@@ -455,6 +455,14 @@ def test_launcher_smoke_loss_decreases(tmp_path):
 
 
 def test_launcher_rejects_model_parallelism(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallelism port"):
-        train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu",
-                    "--model-parallel", "2", "--ckpt-dir", str(tmp_path)])
+    """``--model-parallel 2`` is no longer rejected: on one rank the launcher
+    clamps the model axis, as the reference's mesh does, and trains on the
+    (1, 1) mesh of a one-rank gloo group (its losses equal the plain
+    step's)."""
+    argv = ["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "3",
+            "--ckpt-dir", str(tmp_path / "a")]
+    plain = train.main(argv)
+    out = train.main(argv[:-1] + [str(tmp_path / "b"), "--model-parallel", "2"])
+    assert out["mesh"] == {"shape": [1, 1], "names": ["data", "model"]}
+    assert out["world"] == 1 and out["backend"] == "gloo"
+    np.testing.assert_allclose(out["last_loss"], plain["last_loss"], rtol=1e-6)
