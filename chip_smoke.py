@@ -124,7 +124,21 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    576 f32 gradient (smollm's embedding, error below 0.05), and
    ``ring_layer_matmul`` and ``pipeline_forward`` against their dense
    versions within 2e-5 (f32); each leg prints a ``{"parallel": {...}}``
-   line with the card's name and power limit.
+   line with the card's name and power limit;
+11. the dry run and its cost model (``launch/dryrun.py``), after phase 10's
+   group is gone: (a) ``validate`` for smollm-135m and zamba2-1.2b at 8 x
+   256 tokens, the one-rank train step of ``launch/train.py`` predicted on
+   meta tensors and run on the card: the predicted peak within
+   ``DRYRUN_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated`` over one step
+   after a warm-up one, the FLOPs ``utils.opstats`` counts on the card's
+   step equal to the meta count, the roofline lower bound beside the
+   device-busy ms, and the predicted peak split into its parts; (b) the
+   dry run's command line for smollm-135m on pod16x16 (``DRYRUN_SHAPES``,
+   a fake group of 256 ranks per cell, nothing allocated): train_4k and
+   decode_32k ok and long_500k skipped, decode_32k's
+   per-device argument bytes the reference's 96,905,795,200, and
+   train_4k's per-device matmul FLOPs x 256 within ``DOT_FLOPS_RTOL`` of
+   the one-rank count at the same global batch. No kernel runs in phase 11.
 
 Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
@@ -132,9 +146,9 @@ is each kernel's count on the serving path, phases 3-4, whose shapes phase
 5 times; ``launches_by_path`` has it beside the training path's, phase 6,
 the kill/recover path's, phase 7, the MoE serving path's, 8a-b, 8d's, and
 the new families', 9c-d), a ``{"kill_recover": {...}}``, a ``{"moe":
-{...}}`` and a ``{"new_families": {...}}`` line (phase 10 prints its three
-``{"parallel": {...}}`` lines as it runs), then the ``nvidia-smi``
-line, and as the last line ``{"ok": true, "device":
+{...}}``, a ``{"new_families": {...}}`` and a ``{"dryrun": {...}}`` line
+(phase 10 prints its three ``{"parallel": {...}}`` lines as it runs), then
+the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
 """
@@ -157,9 +171,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.utils.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.utils.roofline import PEAK_FLOPS as BF16_FLOPS_PER_S  # noqa: E402
+
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F32_TOL, BF16_TOL = 2e-5, 2e-2  # attention tolerances, as tests/test_kernels.py
 ATTN_CASES = [
@@ -243,6 +258,26 @@ PSUM_SHAPE, PSUM_STEPS, PSUM_SEED = (49152, 576), 30, 3
 RING_X, RING_W = (2048, 576), (576, 1536)
 PIPE_LAYERS, PIPE_MICRO, PIPE_MB = 8, 6, (2, 256, 576)
 PAR_TOL = 2e-5
+#: phase 11a: the one-rank train step (the launcher's: full config, f32
+#: moments, one microbatch) predicted on meta tensors and run on the card,
+#: at 6b's and 9e's shape (arch, batch, seq); the predicted peak must be
+#: within DRYRUN_PEAK_RTOL of the measured one, both of the process's peak
+#: and of the step's own (the process's less what earlier phases left
+#: allocated)
+DRYRUN_VALIDATE = (("smollm-135m", 8, 256), ("zamba2-1.2b", 8, 256))
+DRYRUN_PEAK_RTOL = 0.10
+#: 11b: the dry run's command line for this arch on pod16x16, these shapes.
+#: prefill_32k is left out: with it phase 11 took 203.8 s in a whole run
+#: (its trace alone 100.5 s: batch 32 does not split 256 ways, so each
+#: rank traces the whole prefill), over the 150 s this phase may take
+DRYRUN_ARCH = "smollm-135m"
+DRYRUN_SHAPES = ("train_4k", "decode_32k", "long_500k")
+#: the reference's per-device argument bytes for smollm-135m decode_32k
+#: (its own dry run; the KV cache is replicated: batch 128 does not split
+#: 256 ways)
+SMOLLM_DECODE_ARGS = 96_905_795_200
+#: train_4k's per-device matmul FLOPs x 256 against the one-rank count
+DOT_FLOPS_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2162,6 +2197,104 @@ def parallel(card: str, trained: dict, host_params) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dry run and its cost model
+# ---------------------------------------------------------------------------
+
+
+def validate_one_rank(card: str) -> list:
+    """11a: ``validate`` for each of ``DRYRUN_VALIDATE``."""
+    from repro_torch.launch import dryrun as D
+
+    rows = []
+    for arch, batch, seq in DRYRUN_VALIDATE:
+        torch.cuda.empty_cache()
+        v = D.validate(arch, batch, seq, DEVICE)
+        other = v["measured_before_bytes"] - v["card_argument_bytes"]
+        step_peak = v["measured_peak_bytes"] - other
+        rel = v["predicted_peak_bytes"] / v["measured_peak_bytes"] - 1.0
+        step_rel = v["predicted_peak_bytes"] / step_peak - 1.0
+        v.update(peak_rel=rel, step_peak_bytes=step_peak, step_peak_rel=step_rel)
+        gib = {k: round(b / 2**30, 4) for k, b in v["predicted_split"].items()}
+        log(f"phase 11a: {arch} ({batch} x {seq}, one rank) on {card}: predicted peak "
+            f"{v['predicted_peak_bytes'] / 2**30:.4f} GiB ({gib}; set in "
+            f"{v['peak_phase']}), measured max_memory_allocated "
+            f"{v['measured_peak_bytes'] / 2**30:.4f} GiB ({100 * rel:+.2f} %), the step's own "
+            f"{step_peak / 2**30:.4f} GiB ({100 * step_rel:+.2f} %; "
+            f"{other / 2**30:.4f} GiB held before it besides its arguments); FLOPs meta "
+            f"{v['meta_flops']:.6e} vs card {v['card_flops']:.6e}; roofline lower bound "
+            f"{v['bound_ms']:.3f} ms ({v['bound_by']}) beside {v['device_busy_ms']:.3f} ms "
+            f"device-busy")
+        assert abs(rel) <= DRYRUN_PEAK_RTOL and abs(step_rel) <= DRYRUN_PEAK_RTOL, (arch, v)
+        assert v["card_flops"] == v["meta_flops"], (arch, v["card_flops"], v["meta_flops"])
+        rows.append(v)
+    return rows
+
+
+def production_cells() -> dict:
+    """11b: the dry run's command line for ``DRYRUN_ARCH`` on pod16x16 (a
+    fake group of 256 ranks, meta tensors), then the one-rank matmul count
+    at train_4k's global batch."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs.shapes import token_batch_specs
+    from repro_torch.launch import dryrun as D
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    cells = {}
+    with tempfile.TemporaryDirectory(dir=build_dir, prefix="dryrun-") as out:
+        for shape in DRYRUN_SHAPES:
+            assert D.main(["--arch", DRYRUN_ARCH, "--shape", shape, "--out", out]) == 0, shape
+            rec = json.loads((Path(out) / "pod16x16" / f"{DRYRUN_ARCH}__{shape}.json")
+                             .read_text())
+            cells[shape] = rec
+    want = {s: ("skip" if s == "long_500k" else "ok") for s in DRYRUN_SHAPES}
+    assert {s: r["status"] for s, r in cells.items()} == want, cells
+    got = cells["decode_32k"]["memory_analysis"]["argument_size_in_bytes"]
+    assert got == SMOLLM_DECODE_ARGS, got
+    entry = get_arch(DRYRUN_ARCH)
+    t0 = time.perf_counter()
+    one = D.trace_one_rank(entry.full, token_batch_specs(entry.full, SHAPES["train_4k"]),
+                           D._adamw_for(entry), entry.microbatches)
+    one_s = time.perf_counter() - t0
+    per_dev = cells["train_4k"]["dot_flops_per_device"]
+    dot_rel = per_dev * cells["train_4k"]["n_devices"] / one["dot_flops_per_device"] - 1.0
+    assert abs(dot_rel) <= DOT_FLOPS_RTOL, (per_dev, one["dot_flops_per_device"])
+    for shape, r in cells.items():
+        if r["status"] == "ok":
+            log(f"phase 11b: {DRYRUN_ARCH} x {shape} x pod16x16: traced in {r['trace_s']} s, "
+                f"arguments {r['memory_analysis']['argument_size_in_bytes']} B, peak "
+                f"{r['peak_memory_per_device'] / 2**30:.3f} GiB, {r['flops_per_device']:.4e} "
+                f"FLOPs, {r['bytes_per_device']:.4e} B, collectives "
+                f"{r['collective_bytes_per_device']:.4e} B/device; bound "
+                f"{r['roofline']['bottleneck']}")
+        else:
+            log(f"phase 11b: {DRYRUN_ARCH} x {shape}: {r['status']} ({r.get('reason')})")
+    log(f"phase 11b: train_4k matmul FLOPs {per_dev:.6e} a device x 256 against "
+        f"{one['dot_flops_per_device']:.6e} on one rank ({dot_rel:+.2e}; traced in "
+        f"{one_s:.1f} s)")
+    keep = ("status", "memory_analysis", "peak_memory_per_device", "memory_split",
+            "flops_per_device", "dot_flops_per_device", "bytes_per_device", "collectives",
+            "collective_bytes_per_device", "model_flops", "n_devices", "trace_s", "roofline",
+            "reason")
+    return {"cells": {s: {k: r[k] for k in keep if k in r} for s, r in cells.items()},
+            "one_rank_dot_flops": one["dot_flops_per_device"], "dot_rel": dot_rel,
+            "one_rank_trace_s": one_s}
+
+
+def dryrun(card: str) -> dict:
+    """Phase 11: 11a on the card, 11b on the host; no group is left."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    row = {"card": card, "validate": validate_one_rank(card)}
+    row.update(production_cells())
+    assert not dist.is_initialized()
+    row["wall_s"] = round(time.perf_counter() - t0, 3)
+    log(f"phase 11: wall time {row['wall_s']} s")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2215,6 +2348,7 @@ def main() -> int:
     moe = moe_path(card, rng)
     fams = new_families(card, rng)
     parallel(card, trained, moe.pop("host_params"))
+    dry = dryrun(card)
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
@@ -2231,6 +2365,7 @@ def main() -> int:
                      default=str))
     print(json.dumps({"new_families": {k: v for k, v in fams.items() if k != "counts"}},
                      default=str))
+    print(json.dumps({"dryrun": dry}, default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,16 +22,6 @@ BATCH, SEQ, SEED, TOP = 8, 256, 0, 12
 WARMUP, STEPS = 2, 5
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def measure(step, state, batch_at, first: int):
     """Train ``WARMUP`` untimed steps (they fill the caching allocator),
     then:
@@ -50,6 +40,8 @@ def measure(step, state, batch_at, first: int):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils.opstats import device_busy_ms
 
     batches = [batch_at(first + i) for i in range(WARMUP + 2 * STEPS)]
     for b in batches[:WARMUP]:
@@ -82,7 +74,7 @@ def measure(step, state, batch_at, first: int):
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    busy_ms = device_busy_ms(prof)
     top_device = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:TOP]

@@ -4,11 +4,9 @@ Each entry carries the full published config, a reduced smoke config of
 the same family, and the reference's per-arch distribution settings (ZeRO
 sharding, sequence parallelism, microbatches, optimizer dtype) as data.
 The train launcher reads ``zero`` (the state's ZeRO sharding), as the
-reference's does; ``zero_params``, ``seq_parallel``, ``microbatches``,
-``opt_dtype`` and ``pure_dp`` are read by the dry run (not yet ported),
-and the parallelism tests give ``zero_params`` and ``microbatches`` to the
-sharded train step themselves. Counterpart of ``repro.configs``: all ten
-architectures, in its order.
+reference's does; the dry run (``launch/dryrun.py``) reads them all.
+Counterpart of ``repro.configs``: all ten architectures, in its order, and
+``cells()``, every (arch x shape) cell of the dry run.
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ from . import (
     whisper_medium,
     zamba2_1p2b,
 )
+from .shapes import SHAPES, ShapeSpec, supports_long_context
 
 
 @dataclass(frozen=True)
@@ -81,4 +80,16 @@ def get_arch(arch_id: str) -> ArchEntry:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ArchEntry", "get_arch"]
+def cells():
+    """All (arch x shape) dry-run cells, with SKIP reasons where applicable."""
+    out = []
+    for aid, entry in ARCHS.items():
+        for sname in SHAPES:
+            skip = None
+            if sname == "long_500k" and not supports_long_context(entry.full):
+                skip = "pure full attention (quadratic) — assignment says skip"
+            out.append((aid, sname, skip))
+    return out
+
+
+__all__ = ["ARCHS", "ArchEntry", "SHAPES", "ShapeSpec", "get_arch", "cells"]

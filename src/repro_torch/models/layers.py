@@ -207,6 +207,20 @@ def split_heads(x, heads: int, dh: int):
     return x.reshape(b, s, heads, dh)
 
 
+def merge_heads(x):
+    """(B, S, heads, dh) -> (B, S, heads * dh). On a DTensor the gradient
+    of the merged dim is laid out as the merged activation was before it
+    is split into heads again: a projection sharded over more ranks than
+    there are heads hands back a gradient cut inside a head, which the
+    head split cannot take (paligemma's 8 heads on a 16-wide model axis)."""
+    b, s = x.shape[:2]
+    y = x.reshape(b, s, -1)
+    if isinstance(y, DTensor) and y.requires_grad:
+        pl = tuple(y.placements)
+        y.register_hook(lambda g: redistribute(g, pl))
+    return y
+
+
 def _expand_kv(k, n_heads: int):
     """(B, S, KVH, D) -> (B, S, H, D) by repeating each kv head."""
     n_kv = k.shape[2]
@@ -401,6 +415,42 @@ def flash_attention(
         prefix_len = prefix_len.to(q.device)
     return _FlashAttention.apply(q, k, v, prefix_len, causal, window, q_offset, kv_block,
                                  scale)
+
+
+def write_token(cache, pos, new) -> None:
+    """``cache[b, pos[b]] = new[b]`` for every row b, in place: a decode
+    step's new K or V (B, KVH, D) into one layer's cache (B, S, KVH, D).
+
+    On a DTensor cache each rank writes into its own shard: the rows of its
+    batch block at the positions its sequence block holds, every other
+    entry rewritten with its old value, so no shape depends on the data.
+    The new token and the positions are gathered whole first (site "cache
+    write")."""
+    if not isinstance(cache, DTensor):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    note_site("cache write")
+    whole = [Replicate()] * mesh.ndim
+    pos_all = redistribute(as_dtensor(pos, mesh), whole).to_local()
+    new_all = redistribute(as_dtensor(new, mesh), whole).to_local().to(cache.dtype)
+    local = cache.to_local()
+    start = [0] * cache.ndim  # this shard's first index in each dim
+    size = list(cache.shape)
+    for i, p in enumerate(cache.placements):  # split over mesh dims in order, major first
+        if isinstance(p, Shard):
+            size[p.dim] //= mesh.size(i)
+            start[p.dim] += mesh.get_local_rank(i) * size[p.dim]
+    b0, s0 = start[0], start[1]
+    nb, ns = local.shape[0], local.shape[1]
+    pos_l = pos_all.long()[b0:b0 + nb] - s0
+    inside = (pos_l >= 0) & (pos_l < ns)
+    pos_l = pos_l.clamp(0, ns - 1)
+    rows = torch.arange(nb, device=local.device)
+    new_l = new_all[b0:b0 + nb, start[2]:start[2] + local.shape[2],
+                    start[3]:start[3] + local.shape[3]]
+    local[rows, pos_l] = torch.where(inside[:, None, None], new_l, local[rows, pos_l])
 
 
 def decode_attention_dense(

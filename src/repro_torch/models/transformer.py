@@ -213,7 +213,7 @@ def _attn_block(cfg, p, x, positions, prefix_len, sharder: Sharder = _id_sharder
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions, sharder)
     o = L.flash_attention(q, k, v, causal=True, window=cfg.window, prefix_len=prefix_len)
-    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+    return L.merge_heads(o) @ p["wo"], (k, v)
 
 
 def _block(cfg, lp, x, positions, prefix_len, sharder: Sharder = _id_sharder):
@@ -341,13 +341,12 @@ def decode_layers(cfg, params, cache, tokens, ffn):
     lengths = cache["length"]  # (B,)
     x = embed_tokens(cfg, params, tokens[:, None])  # (B, 1, d)
     positions = lengths.long()[:, None]
-    rows = torch.arange(b, device=tokens.device)
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         q, k, v = _qkv(cfg, lp["attn"], _apply_norm(cfg, lp["ln1"], x), positions)
         kc, vc = cache["k"][i], cache["v"][i]
         # write the new token into the cache at each sequence's length
-        kc[rows, positions[:, 0]] = k[:, 0].to(kc.dtype)
-        vc[rows, positions[:, 0]] = v[:, 0].to(vc.dtype)
+        L.write_token(kc, positions[:, 0], k[:, 0])
+        L.write_token(vc, positions[:, 0], v[:, 0])
         o = L.decode_attention_dense(q, kc, vc, lengths + 1, window=cfg.window)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
         x = x + ffn(lp, _apply_norm(cfg, lp["ln2"], x))

@@ -137,7 +137,7 @@ def _attn(cfg, p, xq, xkv, causal: bool):
     q, k, v = _proj_qkv(cfg, p, xq, xkv)
     o = L.flash_attention(q, k, v, causal=causal)
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+    return L.merge_heads(o) @ p["wo"], (k, v)
 
 
 def _mlp(cfg, p, x):
@@ -280,15 +280,14 @@ def decode_step(cfg, params, cache, tokens, sharder: Sharder = _id_sharder):
     pos = lengths.long()
     x = (p["embed"][tokens.long()] + p["pos"][pos])[:, None]  # (B, 1, d)
     h, dh = cfg.n_heads, cfg.dh
-    rows = torch.arange(b, device=tokens.device)
     enc_len = torch.full((b,), cache["xk"].shape[2], dtype=torch.int32, device=tokens.device)
     layers = _stack(p, ("ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"), cfg.n_layers)
     for i, lp in enumerate(layers):
         xin = _ln(lp["ln1"], x)
         q, k, v = _proj_qkv(cfg, lp["self_attn"], xin, xin)
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[rows, pos] = k[:, 0].to(kc.dtype)
-        vc[rows, pos] = v[:, 0].to(vc.dtype)
+        L.write_token(kc, pos, k[:, 0])
+        L.write_token(vc, pos, v[:, 0])
         o = L.decode_attention_dense(q, kc, vc, lengths + 1)
         x = x + o.reshape(b, 1, h * dh) @ lp["self_attn"]["wo"]
         # cross-attention over the static encoder memory

@@ -157,7 +157,7 @@ def _shared_attn(cfg, sp, x, positions, sharder: Sharder = _id_sharder):
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = L.flash_attention(q, k, v, causal=True)
-    x = x + o.reshape(b, s, h * dh) @ sp["attn"]["wo"]
+    x = x + L.merge_heads(o) @ sp["attn"]["wo"]
     m = L.mlp_apply(sp["mlp"], L.rmsnorm(x, sp["ln2"]), cfg.act, cfg.gated)
     return x + sharder(m, ("batch", "seq", "embed")), (k, v)
 
@@ -307,9 +307,8 @@ def _shared_attn_decode(cfg, sp, x, cache, app: int, lengths):
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     kc, vc = cache["k"][app], cache["v"][app]
-    rows = torch.arange(b, device=x.device)
-    kc[rows, pos[:, 0]] = k[:, 0].to(kc.dtype)
-    vc[rows, pos[:, 0]] = v[:, 0].to(vc.dtype)
+    L.write_token(kc, pos[:, 0], k[:, 0])
+    L.write_token(vc, pos[:, 0], v[:, 0])
     o = L.decode_attention_dense(q, kc, vc, lengths + 1)
     x = x + (o.reshape(b, 1, h * dh) @ sp["attn"]["wo"])[:, 0]
     return x + L.mlp_apply(sp["mlp"], L.rmsnorm(x, sp["ln2"]), cfg.act, cfg.gated)

@@ -107,14 +107,18 @@ def make_train_step(cfg, adamw: opt.AdamWConfig, sharder=None,
 
 def make_serve_steps(cfg, sharder=None):
     """Returns (prefill_fn(params, batch, cache), decode_fn(params, cache,
-    tokens)), the two serving entry points."""
+    tokens)), the two serving entry points. With a sharder that carries a
+    mesh they run under DTensor's implicit replication, as the train step."""
     fam = family_of(cfg)
     sharder = sharder or (lambda x, names: x)
+    mesh = getattr(sharder, "mesh", None)
 
     def prefill_fn(params, batch, cache):
-        return fam.prefill(cfg, params, batch, cache, sharder=sharder)
+        with _on_mesh(mesh):
+            return fam.prefill(cfg, params, batch, cache, sharder=sharder)
 
     def decode_fn(params, cache, tokens):
-        return fam.decode_step(cfg, params, cache, tokens, sharder=sharder)
+        with _on_mesh(mesh):
+            return fam.decode_step(cfg, params, cache, tokens, sharder=sharder)
 
     return prefill_fn, decode_fn

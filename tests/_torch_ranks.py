@@ -343,3 +343,93 @@ def families_job(rank, world, archs):
         out[arch] = {"grad_rel": grad_rel, "losses": losses, "plain_losses": plosses,
                      "sites": S.taken_sites(clear=True)}
     return out
+
+
+def dryrun_job(rank, world, archs):
+    """The dry run's sharded paths that no train test reaches, each beside
+    the unsharded step: ``decode`` and ``heads``."""
+    return {"decode": decode_steps(archs), "heads": heads_split_gradients()}
+
+
+def heads_split_gradients():
+    """paligemma's smoke config with 2 heads of 32 on a (data 1, model 4)
+    mesh, so the attention projections are split inside a head (as the
+    full config's 8 heads on a 16-wide model axis): the largest relative
+    gap of any gradient leaf to the unsharded one."""
+    import dataclasses
+
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.api import family_of
+    from repro_torch.parallel import sharding as S
+
+    cfg = dataclasses.replace(get_arch("paligemma-3b").smoke, n_heads=2)
+    fam = family_of(cfg)
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    rules = S.make_rules(mesh, kind="train", seq_parallel=True)
+    params = fam.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                                       patch_dim=cfg.d_model), "cpu").batch_at(0)
+    placed = S.place_tree(params, S.tree_shardings(params, fam.param_axes(cfg), rules, mesh))
+    S.taken_sites(clear=True)
+    grads = _grads(cfg, placed, S.place_tree(batch, S.batch_shardings(batch, rules, mesh)),
+                   S.make_sharder(mesh, rules))
+    want = _grads(cfg, params, batch)
+    return {"grad_rel": max(float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                            for g, w in zip(grads, want)),
+            "sites": S.taken_sites(clear=True)}
+
+
+def decode_steps(archs):
+    """Each architecture's smoke decode step on a (data 2, model 2) mesh
+    under the decode rules (batch over data, the cache's sequence over
+    model), from a seeded cache and lengths, beside the unsharded step:
+    the logits' and the whole cache's largest differences."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeSpec, cache_specs
+    from repro_torch.models.api import family_of
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.step import make_serve_steps
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rules = S.make_rules(mesh, kind="decode")
+    batch, max_len = 4, 16
+    out = {}
+    for arch in archs:
+        cfg = get_arch(arch).smoke
+        fam = family_of(cfg)
+        params = fam.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        g = torch.Generator().manual_seed(1)
+
+        def seeded(t):
+            if t.dtype == torch.int32:  # lengths: each sequence somewhere short of the end
+                return torch.randint(0, max_len - 1, t.shape, generator=g, dtype=torch.int32)
+            return torch.randn(t.shape, generator=g).to(t.dtype)
+
+        cache = tree_map(seeded, cache_specs(cfg, ShapeSpec("d", max_len, batch, "decode")))
+        tokens = torch.randint(0, cfg.vocab, (batch,), generator=g, dtype=torch.int32)
+        _, plain = make_serve_steps(cfg)
+        want, want_cache = plain(params, tree_map(torch.clone, cache), tokens)
+        p_sh = S.tree_shardings(params, fam.param_axes(cfg), rules, mesh)
+        c_sh = S.tree_shardings(cache, fam.cache_axes(cfg), rules, mesh)
+        t_sh = S.batch_shardings({"t": tokens}, rules, mesh)["t"]
+        S.taken_sites(clear=True)
+        _, sharded = make_serve_steps(cfg, S.make_sharder(mesh, rules))
+        got, got_cache = sharded(S.place_tree(params, p_sh), S.place_tree(cache, c_sh),
+                                 S.place(tokens, t_sh))
+        out[arch] = {
+            "logits": float(np.abs(_whole(got) - want.float().numpy()).max()),
+            "logits_max": float(want.abs().max()),
+            "cache": max(float(np.abs(_whole(a) - b.float().numpy()).max())
+                         for a, b in zip(leaves(got_cache), leaves(want_cache), strict=True)),
+            "cache_specs": [sh.spec for sh in leaves(c_sh)],
+            "sites": S.taken_sites(clear=True),
+        }
+    return out

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module, and
-chip_smoke.py, loads neither JAX nor any module of the JAX package."""
+chip_smoke.py, loads neither JAX nor any module of the JAX package, and
+starts no process group (the dry run starts its fake group per cell)."""
 
 import json
 import os
@@ -20,7 +21,8 @@ import chip_smoke  # noqa: F401  (main() only runs as a script)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
-print(json.dumps({"imported": mods, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"imported": mods, "bad": bad, "group": dist.is_initialized()}))
 """
 
 
@@ -30,6 +32,7 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, env=env, timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
+    assert result["group"] is False
     for name in ("repro_torch.kernels.stitch_copy", "repro_torch.kernels.stitched_attention",
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.train.step", "repro_torch.train.optimizer",
@@ -44,5 +47,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.configs.starcoder2_15b", "repro_torch.models.mamba2",
                  "repro_torch.models.zamba2", "repro_torch.models.rwkv6",
                  "repro_torch.models.whisper", "repro_torch.configs.zamba2_1p2b",
-                 "repro_torch.configs.rwkv6_7b", "repro_torch.configs.whisper_medium"):
+                 "repro_torch.configs.rwkv6_7b", "repro_torch.configs.whisper_medium",
+                 "repro_torch.configs.shapes", "repro_torch.launch.dryrun",
+                 "repro_torch.utils.opstats", "repro_torch.utils.roofline"):
         assert name in result["imported"]
