@@ -41,15 +41,19 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    ``TRAIN_LOSS_RTOL``) and in bf16 with remat on, the full config's
    working types (within ``TRAIN_LOSS_RTOL_BF16``);
    (b) smollm-135m at full width (bf16, remat on, batch 8, seq 256) for 20
-   steps through ``repro_torch.launch.train`` and its ``Supervisor``,
-   checkpointing every 10 steps into a temporary directory, with one
-   ``RuntimeError`` injected at step 15: exactly that one restart (and no
-   other event but logged stragglers), the restored step-10 state equal
-   bit for bit to the state saved, all 20 steps in the history, every loss
-   finite and the last below the first; then 2 more steps to warm up, 5
-   timed and 5 profiled by ``measure`` of ``scripts/profile_train.py`` (ms/step,
-   tokens/s, peak memory allocated and reserved, device idle share,
-   kernels per step); (c) the trained f32 first moments through
+   steps through ``repro_torch.launch.train``, whose step is captured in a
+   CUDA graph (``train/graph.py``), and its ``Supervisor``, checkpointing
+   every 10 steps into a temporary directory, with one ``RuntimeError``
+   injected at step 15: exactly that one restart (and no other event but
+   logged stragglers), one capture, the restored step-10 state equal bit for
+   bit to the state saved, all 20 steps in the history, every loss finite,
+   the last below the first, and each within ``TRAIN_LOSS_RTOL_BF16`` of the
+   eager step's on the same steps (bit-equality reported); then the eager
+   and the graphed step in turns (eager, graph, graph, eager), each turn 2
+   steps to warm up (the graph's warm-up and capture), 5 timed and 5
+   profiled by ``measure`` of ``scripts/profile_train.py`` (ms/step,
+   tokens/s, peak memory allocated and reserved, device busy and idle
+   share, kernels per step); (c) the trained f32 first moments through
    ``OffloadManager`` on an f32 arena on the card (put, spill, fetch, get),
    bit-exact, every gather and scatter of it equal bit for bit to its plain
    version at the path's own chunk maps, and the arena empty after
@@ -104,15 +108,18 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    its plain version, then 4 decode steps from it equal bit for bit to
    those from the state that never left), with launch counts zeroed before
    (c) and all > 0 after (d); (e) zamba2-1.2b and whisper-medium trained 5
-   steps at full width through ``repro_torch.launch.train`` (finite
-   losses, no restart, ms/step and peak memory); phase 9's wall time;
+   steps at full width through ``repro_torch.launch.train`` on the graphed
+   step (finite losses within ``TRAIN_LOSS_RTOL_BF16`` of the eager step's,
+   no restart, one capture, ms/step and peak memory), then the eager and
+   graphed steps timed in turns by ``measure``; phase 9's wall time;
 10. parallelism on a one-rank ``nccl`` group (``launch/mesh.py``), destroyed
    at the end: (a) phase 6b's run (smollm-135m at full width, bf16, remat,
    same seed and batches) cut to ``PAR_STEPS`` steps through the sharded
    launcher path with ``--model-parallel 2``, which one rank clamps to a
-   (1, 1) mesh: every loss within ``TRAIN_LOSS_RTOL_BF16`` of 6b's first
-   steps (and whether bit-equal), every state leaf a DTensor on the mesh
-   with the rules' placements; then ``measure`` of the sharded step (ms/step,
+   (1, 1) mesh, on the graphed step (one capture): every loss within
+   ``TRAIN_LOSS_RTOL_BF16`` of 6b's first steps (and whether bit-equal),
+   every state leaf a DTensor on the mesh with the rules' placements; then
+   ``measure`` of the eager and graphed sharded step in turns (ms/step,
    peak memory, device busy and idle share, kernels a step) beside 6b's;
    (b) dbrx-132b at full width cut to ``DBRX_LAYERS`` (phase 8's weights,
    kept on the host meanwhile), one loss and the router and expert
@@ -147,7 +154,8 @@ is each kernel's count on the serving path, phases 3-4, whose shapes phase
 the kill/recover path's, phase 7, the MoE serving path's, 8a-b, 8d's, and
 the new families', 9c-d), a ``{"kill_recover": {...}}``, a ``{"moe":
 {...}}``, a ``{"new_families": {...}}`` and a ``{"dryrun": {...}}`` line
-(phase 10 prints its three ``{"parallel": {...}}`` lines as it runs), then
+(phase 10 prints its three ``{"parallel": {...}}`` lines and phases 6b, 9e
+and 10a one ``{"graph": {...}}`` line per path as they run), then
 the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the script exits non-zero and
 prints no result.
@@ -873,25 +881,128 @@ def train_parity() -> dict:
     }
 
 
+def launcher_data(cfg, args):
+    """The train launcher's data pipeline for ``cfg`` and its arguments."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.api import family_of
+
+    fam = family_of(cfg).name
+    return SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
+        patch_dim=cfg.d_model if fam == "vlm" else None,
+        frame_dim=cfg.d_model if fam == "audio" else None), DEVICE)
+
+
+def eager_losses(cfg, args) -> list:
+    """The launcher's first ``args.steps`` steps run by the eager step, with
+    no supervisor: the same seeded state, batches and AdamW."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import init_state, make_train_step
+
+    adamw = opt.AdamWConfig(lr=args.lr)
+    state = init_state(cfg, adamw, torch.Generator().manual_seed(args.seed), DEVICE)
+    step, data = make_train_step(cfg, adamw), launcher_data(cfg, args)
+    losses = []
+    for i in range(args.steps):
+        state, m = step(state, data.batch_at(i))
+        losses.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def hold_losses(graphed: list, eager: list, what: str) -> dict:
+    """Each graphed loss within ``TRAIN_LOSS_RTOL_BF16`` (one bf16 rounding)
+    of the eager step's at the same step; bit-equality is reported."""
+    rel = max(abs(g - e) / abs(e) for g, e in zip(graphed, eager, strict=True))
+    assert rel <= TRAIN_LOSS_RTOL_BF16, (what, graphed, eager)
+    return dict(max_rel=rel, bit_equal=graphed == eager)
+
+
+def graph_turns(step_fn, state, batch_at, first: int, order) -> tuple:
+    """``measure`` of ``scripts/profile_train.py`` on the eager step and on
+    the graphed one (``train.graph.GraphedStep`` of the same step) in turns
+    (``order``, e.g. eager, graph, graph, eager), each turn on fresh
+    batches; the graph and its pool go before an eager turn that no graph
+    turn follows. Returns (state, {"eager": [...], "graph": [...]})."""
+    from repro_torch.train.graph import GraphedStep
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_train import STEPS, WARMUP, measure
+
+    graphed, rows = None, {"eager": [], "graph": []}
+    for i, mode in enumerate(order):
+        if mode == "graph" and graphed is None:
+            graphed = GraphedStep(step_fn, DEVICE)
+        if mode == "eager" and "graph" not in order[i:]:
+            graphed = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, timing = measure(graphed if mode == "graph" else step_fn, state, batch_at,
+                                first + i * (WARMUP + 2 * STEPS))
+        timing["wall_s"] = time.perf_counter() - t0
+        assert math.isfinite(timing["last_loss"]), (mode, timing)
+        if mode == "graph":
+            assert graphed.signatures == 1 and graphed.captured == 1, graphed.signatures
+        rows[mode].append(timing)
+    return state, rows
+
+
+def turn_figures(timing: dict, busy_measured: bool) -> dict:
+    prof = timing["profiled"]
+    return dict(ms_per_step=timing["ms_per_step"], tokens_per_s=timing["tokens_per_s"],
+                peak_allocated_bytes=timing["peak_allocated_bytes"],
+                peak_reserved_bytes=timing["peak_reserved_bytes"],
+                device_busy_ms_per_step=prof["device_busy_ms_per_step"] if busy_measured
+                else "not measured",
+                device_idle_share=prof["device_idle_share"] if busy_measured
+                else "not measured",
+                kernels_per_step=prof["kernels_per_step"],
+                profiled_ms_per_step=prof["ms_per_step"], wall_s=timing["wall_s"])
+
+
+def graph_line(path: str, card: str, rows: dict, losses: dict, **extra) -> dict:
+    """Print one ``{"graph": {...}}`` line: each eager and graphed turn's
+    ms/step, device busy, idle share, kernels a step and peak memory. If the
+    profiler records under a tenth of the eager kernels a step in replays,
+    it does not see inside the graph: busy and idle are "not measured" there
+    and the CUDA-event ms/step stands."""
+    eager_k = min(t["profiled"]["kernels_per_step"] for t in rows["eager"])
+    seen = all(t["profiled"]["kernels_per_step"] >= 0.1 * eager_k for t in rows["graph"])
+    row = dict(path=path, card=card, losses=losses, profiler_sees_replays=seen,
+               eager=[turn_figures(t, True) for t in rows["eager"]],
+               graph=[turn_figures(t, seen) for t in rows["graph"]], **extra)
+    print(json.dumps({"graph": row}, default=str), flush=True)
+    for mode in ("eager", "graph"):
+        for r in row[mode]:
+            busy, idle = r["device_busy_ms_per_step"], r["device_idle_share"]
+            log(f"phase {path}: {mode} turn on {card}: {r['ms_per_step']:.3f} ms/step, device "
+                f"busy {busy if isinstance(busy, str) else f'{busy:.3f} ms'}, idle share "
+                f"{idle if isinstance(idle, str) else f'{idle:.4f}'}, "
+                f"{r['kernels_per_step']:.0f} kernels/step, peak allocated "
+                f"{r['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
+                f"{r['peak_reserved_bytes'] / 2**30:.3f} GiB ({r['wall_s']:.1f} s)")
+    return row
+
+
 def supervised_training(workdir: Path, card: str):
-    """6b: full-width smollm-135m through the launcher and its supervisor,
-    one fault injected, then timed in steady state; returns (result, final
-    state, timing)."""
+    """6b: full-width smollm-135m through the launcher (on the graphed step)
+    and its supervisor, one fault injected, its losses held to the eager
+    step's on the same steps; then the eager and graphed steps timed in
+    turns in steady state. Returns (result, final state, timing, graph
+    row)."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.launch import train
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
     from repro_torch.tree import flatten_with_path
 
-    sys.path.insert(0, str(ROOT / "scripts"))
-    from profile_train import measure
-
     args = train.parse_args(TRAIN_ARGS)
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.full
     watch = args.ckpt_every
+    eager = eager_losses(cfg, args)
 
     class Checked(CheckpointManager):
         """Keeps a copy, on the card, of the state saved at step ``watch``
@@ -943,6 +1054,9 @@ def supervised_training(workdir: Path, card: str):
     assert all(math.isfinite(x) for x in losses), losses
     assert result["last_loss"] < result["first_loss"], result
     assert int(state.step) == args.steps and state.params["embed"].dtype == cfg.dtype
+    # one batch signature, captured once and never again for the restore
+    assert (result["signatures"], result["graphs"]) == (1, 1), result
+    held = hold_losses(losses, eager, "phase 6b")
 
     log(f"phase 6b: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{str(cfg.dtype).split('.')[-1]}, remat {cfg.remat}, batch {args.batch}, seq "
@@ -953,25 +1067,18 @@ def supervised_training(workdir: Path, card: str):
         f"{result['tokens_per_s']} tokens/s over the run, peak allocated "
         f"{result['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
         f"{result['peak_reserved_bytes'] / 2**30:.3f} GiB (with this check's copy of the "
-        f"step-{watch} state); disk free before {free_gb:.1f} GB")
+        f"step-{watch} state); disk free before {free_gb:.1f} GB; on the graphed step "
+        f"({result['graphs']} capture), every loss within {held['max_rel']:.3g} of the eager "
+        f"step's (bit-equal {held['bit_equal']})")
 
-    # steady state, measured as scripts/profile_train.py measures it
+    # steady state, measured as scripts/profile_train.py measures it, eager
+    # and graphed in turns on this card
     ckpt.saved = None
     step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr))
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                      global_batch=args.batch, seed=args.seed), DEVICE)
-    torch.cuda.empty_cache()
-    state, timing = measure(step_fn, state, data.batch_at, args.steps)
-    assert math.isfinite(timing["last_loss"]), timing
-    prof = timing["profiled"]
-    log(f"phase 6b: steady state on {card}, over {timing['steps']} steps: "
-        f"{timing['ms_per_step']:.3f} ms/step, {timing['tokens_per_s']:.0f} tokens/s, peak "
-        f"allocated {timing['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
-        f"{timing['peak_reserved_bytes'] / 2**30:.3f} GiB; under the profiler "
-        f"{prof['ms_per_step']:.3f} ms/step, device busy {prof['device_busy_ms_per_step']:.3f} "
-        f"ms/step, idle share {prof['device_idle_share']:.4f}, "
-        f"{prof['kernels_per_step']:.0f} kernels/step")
-    return result, state, timing
+    state, timing = graph_turns(step_fn, state, launcher_data(cfg, args).batch_at, args.steps,
+                                ("eager", "graph", "graph", "eager"))
+    row = graph_line("6b", card, timing, held, arch=cfg.name, launcher_graphs=result["graphs"])
+    return result, state, timing, row
 
 
 def offload_roundtrip(tensors: dict, what: str):
@@ -1054,7 +1161,7 @@ def train_path(card: str) -> dict:
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir, prefix="ckpt-") as workdir:
-        result, state, timing = supervised_training(Path(workdir), card)
+        result, state, timing, graph = supervised_training(Path(workdir), card)
     from repro_torch.tree import flatten_with_path
 
     offload, _ = offload_roundtrip(dict(flatten_with_path(state.opt.mu)),
@@ -1063,7 +1170,7 @@ def train_path(card: str) -> dict:
     counts = ops.launch_counts()
     log(f"phase 6: kernel launches on the training path {counts}")
     assert counts["stitch_gather"] > 0 and counts["stitch_scatter"] > 0, counts
-    return dict(counts=counts, parity_rel=rels, timing=timing, offload=offload,
+    return dict(counts=counts, parity_rel=rels, timing=timing, graph=graph, offload=offload,
                 steps=result["steps"], losses=[h["loss"] for h in result["history"]],
                 first_loss=result["first_loss"],
                 last_loss=result["last_loss"], run_tokens_per_s=result["tokens_per_s"],
@@ -1892,11 +1999,17 @@ def full_width_family(arch: str, rng, card: str) -> dict:
 
 def train_new_families(card: str) -> dict:
     """9e: zamba2-1.2b and whisper-medium at full width trained through
-    ``repro_torch.launch.train`` (bf16, remat on): every loss finite, no
-    restart; steady ms/step (host clock between steps, which end with the
-    loss read back; first step left out) and peak memory. rwkv6-7b is left
-    out (``NEW_TRAIN_ARCHS``)."""
+    ``repro_torch.launch.train`` on the graphed step (bf16, remat on): every
+    loss finite and within one bf16 rounding of the eager step's on the same
+    steps, no restart, one capture; the launcher run's ms/step (host clock
+    between steps, which end with the loss read back; the warm-up and
+    capture steps left out) and peak memory; then the eager and graphed
+    steps timed in turns by ``measure``. rwkv6-7b is left out
+    (``NEW_TRAIN_ARCHS``)."""
+    from repro_torch.configs import get_arch
     from repro_torch.launch import train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
 
     rows = {}
     build_dir = ROOT / "build"
@@ -1906,25 +2019,37 @@ def train_new_families(card: str) -> dict:
             torch.cuda.empty_cache()
             args = train.parse_args(["--arch", arch, *NEW_TRAIN_ARGS, "--ckpt-dir",
                                      str(Path(workdir) / arch)])
+            cfg = get_arch(arch).full
+            eager = eager_losses(cfg, args)
             stamps = []
             result, state = train.run(args, fail_injector=lambda _: stamps.append(
                 time.perf_counter()))
             stamps.append(time.perf_counter())
             assert [e for e in result["events"] if e["kind"] != "straggler"] == [], \
                 result["events"]
+            assert (result["signatures"], result["graphs"]) == (1, 1), result
             losses = [h["loss"] for h in result["history"]]
             assert len(losses) == args.steps and all(math.isfinite(x) for x in losses), losses
+            held = hold_losses(losses, eager, f"phase 9e: {arch}")
             step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
-            rows[arch] = dict(losses=losses, ms_per_step=statistics.median(step_ms[1:]),
-                              first_step_ms=step_ms[0], tokens_per_s=result["tokens_per_s"],
+            rows[arch] = dict(losses=losses, eager_losses=eager,
+                              ms_per_step=statistics.median(step_ms[2:]),
+                              warm_up_ms=step_ms[0], capture_ms=step_ms[1],
+                              tokens_per_s=result["tokens_per_s"],
                               peak_allocated_bytes=result["peak_allocated_bytes"],
                               peak_reserved_bytes=result["peak_reserved_bytes"])
             log(f"phase 9e: {arch} at full width (bf16, remat on, batch {args.batch}, seq "
-                f"{args.seq}) on {card}: {args.steps} supervised steps, no restart, losses "
-                f"{[round(x, 4) for x in losses]}, {rows[arch]['ms_per_step']:.1f} ms/step "
-                f"(first {step_ms[0]:.1f}), peak allocated "
+                f"{args.seq}) on {card}: {args.steps} supervised steps on the graphed step, no "
+                f"restart, losses {[round(x, 4) for x in losses]}, within {held['max_rel']:.3g} "
+                f"of the eager step's (bit-equal {held['bit_equal']}), "
+                f"{rows[arch]['ms_per_step']:.1f} ms/step (warm-up {step_ms[0]:.1f}, capture "
+                f"and first replay {step_ms[1]:.1f}), peak allocated "
                 f"{result['peak_allocated_bytes'] / 2**30:.3f} GiB, reserved "
                 f"{result['peak_reserved_bytes'] / 2**30:.3f} GiB")
+            step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr))
+            state, timing = graph_turns(step_fn, state, launcher_data(cfg, args).batch_at,
+                                        args.steps, ("eager", "graph"))
+            rows[arch]["turns"] = graph_line(f"9e {arch}", card, timing, held, arch=arch)
             del state
     log("phase 9e: rwkv6-7b is not trained: its f32 AdamW moments (56 GB), bf16 weights "
         "(14 GB) and gradients (14 GB) exceed the card's 80 GB")
@@ -1964,20 +2089,17 @@ def parallel_line(leg: str, card: str, row: dict) -> None:
 
 def sharded_training(card: str, trained: dict) -> dict:
     """10a: phase 6b's run cut to ``PAR_STEPS`` steps through the launcher's
-    sharded path (``--model-parallel 2``, a (1, 1) mesh on one rank), then
-    its step timed and profiled in steady state by ``measure``, as 6b's."""
+    sharded path (``--model-parallel 2``, a (1, 1) mesh on one rank), on the
+    graphed step, then the eager and graphed sharded steps timed and
+    profiled in turns by ``measure``, beside 6b's."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.launch import train
     from repro_torch.parallel import sharding as S
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step, state_axes
     from repro_torch.tree import flatten_with_path, leaves
-
-    sys.path.insert(0, str(ROOT / "scripts"))
-    from profile_train import measure
 
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
@@ -1990,6 +2112,7 @@ def sharded_training(card: str, trained: dict) -> dict:
     cfg = entry.smoke if args.smoke else entry.full
     mesh = leaves(state)[0].device_mesh
     assert result["mesh"] == {"shape": [1, 1], "names": ["data", "model"]}, result["mesh"]
+    assert (result["signatures"], result["graphs"]) == (1, 1), result
     rules = S.make_rules(mesh, kind="train", seq_parallel=False)
     want = S.tree_shardings(state, state_axes(cfg), rules, mesh, zero=entry.zero)
     for (path, leaf), sh in zip(flatten_with_path(state), leaves(want), strict=True):
@@ -1997,52 +2120,32 @@ def sharded_training(card: str, trained: dict) -> dict:
         assert tuple(leaf.placements) == sh.placements, (path, leaf.placements, sh.placements)
     losses = [h["loss"] for h in result["history"]]
     plain = trained["losses"][:PAR_STEPS]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain, strict=True))
-    assert rel <= TRAIN_LOSS_RTOL_BF16, (losses, plain)
+    held = hold_losses(losses, plain, "phase 10a")
     n_leaves = len(leaves(state))
     # steady state, measured as 6b's: the sharded step on placed batches
     step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr), S.make_sharder(mesh, rules))
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                      global_batch=args.batch, seed=args.seed), DEVICE)
+    data = launcher_data(cfg, args)
 
     def batch_at(step):
         batch = data.batch_at(step)
         return S.place_tree(batch, S.batch_shardings(batch, rules, mesh))
 
-    torch.cuda.empty_cache()
-    state, timing = measure(step_fn, state, batch_at, args.steps)
-    assert math.isfinite(timing["last_loss"]), timing
-    prof, prof6b = timing["profiled"], trained["timing"]["profiled"]
+    state, timing = graph_turns(step_fn, state, batch_at, args.steps, ("eager", "graph"))
+    turns = graph_line("10a", card, timing, held, arch=cfg.name)
     row = dict(arch=cfg.name, mesh=result["mesh"], world=result["world"],
                backend=result["backend"], fallbacks=result["fallbacks"], steps=result["steps"],
-               losses=losses, plain_losses=plain, max_rel=rel, bit_equal=losses == plain,
-               ms_per_step=timing["ms_per_step"],
-               peak_allocated_bytes=timing["peak_allocated_bytes"],
-               peak_reserved_bytes=timing["peak_reserved_bytes"],
-               device_busy_ms_per_step=prof["device_busy_ms_per_step"],
-               device_idle_share=prof["device_idle_share"],
-               kernels_per_step=prof["kernels_per_step"],
-               phase6b=dict(ms_per_step=trained["timing"]["ms_per_step"],
-                            peak_allocated_bytes=trained["timing"]["peak_allocated_bytes"],
-                            peak_reserved_bytes=trained["timing"]["peak_reserved_bytes"],
-                            device_busy_ms_per_step=prof6b["device_busy_ms_per_step"],
-                            device_idle_share=prof6b["device_idle_share"],
-                            kernels_per_step=prof6b["kernels_per_step"]))
+               graphs=result["graphs"], losses=losses, plain_losses=plain, **held,
+               eager=turns["eager"][0], graph=turns["graph"][0],
+               phase6b=dict(eager=trained["graph"]["eager"][0],
+                            graph=trained["graph"]["graph"][0]))
     log(f"phase 10a: {cfg.name} on the sharded launcher path, mesh {result['mesh']['shape']} "
         f"({result['backend']}), {n_leaves} DTensor leaves with the rules' "
-        f"placements; losses {['%.6f' % x for x in losses]} vs 6b's "
-        f"{['%.6f' % x for x in plain]} (max rel {rel:.3g}, bit-equal {row['bit_equal']}); "
-        f"steady state on {card}: {row['ms_per_step']:.3f} ms/step (6b "
-        f"{row['phase6b']['ms_per_step']:.3f}), peak allocated "
-        f"{row['peak_allocated_bytes'] / 2**30:.3f} GiB (6b "
-        f"{row['phase6b']['peak_allocated_bytes'] / 2**30:.3f}), reserved "
-        f"{row['peak_reserved_bytes'] / 2**30:.3f} GiB (6b "
-        f"{row['phase6b']['peak_reserved_bytes'] / 2**30:.3f}); under the profiler device "
-        f"busy {row['device_busy_ms_per_step']:.3f} ms/step (6b "
-        f"{row['phase6b']['device_busy_ms_per_step']:.3f}), idle share "
-        f"{row['device_idle_share']:.4f} (6b {row['phase6b']['device_idle_share']:.4f}), "
-        f"{row['kernels_per_step']:.0f} kernels/step (6b "
-        f"{row['phase6b']['kernels_per_step']:.0f}); fallbacks {result['fallbacks']}")
+        f"placements, {result['graphs']} capture; losses {['%.6f' % x for x in losses]} vs "
+        f"6b's {['%.6f' % x for x in plain]} (max rel {row['max_rel']:.3g}, bit-equal "
+        f"{row['bit_equal']}); "
+        f"steady state on {card}: sharded eager {row['eager']['ms_per_step']:.3f} / graphed "
+        f"{row['graph']['ms_per_step']:.3f} ms/step (6b {row['phase6b']['eager']['ms_per_step']:.3f}"
+        f" / {row['phase6b']['graph']['ms_per_step']:.3f}); fallbacks {result['fallbacks']}")
     del state
     torch.cuda.empty_cache()
     return row

@@ -10,6 +10,12 @@ supervisor. Runs on the card unless ``--device cpu``; on the card the
 result also carries tokens/s and the peak memory allocated and reserved by
 PyTorch's caching allocator. ``--smoke`` selects the reduced config.
 
+Every step goes through ``train.graph.GraphedStep``, the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``: on the card the step is
+captured in one CUDA graph per batch signature and replayed (``graphs`` in
+the result counts the captures); with ``--device cpu`` the same body runs
+eagerly on each call.
+
 With ``--model-parallel`` above 1, or under ``torchrun`` (``WORLD_SIZE``
 above 1), the step is sharded as the reference's: a ``(data, model)`` mesh
 over every rank (``make_host_mesh``, the model axis clamped to the world:
@@ -49,6 +55,7 @@ from ..models.api import family_of
 from ..parallel.sharding import (batch_shardings, make_rules, make_sharder, place_tree,
                                  taken_sites, tree_shardings)
 from ..train import optimizer as opt
+from ..train.graph import GraphedStep
 from ..train.step import TrainState, init_state, make_train_step, state_axes
 from .mesh import make_host_mesh
 
@@ -109,7 +116,8 @@ def run(args: argparse.Namespace,
             return place_tree(batch, batch_shardings(batch, rules, mesh))
 
         taken_sites(clear=True)
-    step_fn = make_train_step(cfg, adamw, sharder, microbatches=args.microbatches)
+    step_fn = GraphedStep(make_train_step(cfg, adamw, sharder, microbatches=args.microbatches),
+                          device)
     ckpt = ckpt or CheckpointManager(args.ckpt_dir)
     sup = Supervisor(step_fn, batch_at, ckpt,
                      SupervisorConfig(checkpoint_every=args.ckpt_every), device=device,
@@ -134,6 +142,8 @@ def run(args: argparse.Namespace,
         "min_loss": min(losses),
         "wall_s": round(wall, 1),
         "steps_per_s": round(len(history) / wall, 3),
+        "signatures": step_fn.signatures,
+        "graphs": step_fn.captured,
         "events": sup.events,
         "history": history,
     }

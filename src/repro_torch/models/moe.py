@@ -204,7 +204,11 @@ def combine(cfg: MoEConfig, y, r: Routing, dest):
     out = torch.empty_like(weighted).index_put((r.order,), weighted)
     out = out.view(n_tok, k, d).sum(1)
     # load-balancing auxiliary loss (Switch/GShard style)
-    dispatch_frac = torch.nn.functional.one_hot(r.topi, e).float().sum(1).mean(0)
+    # one_hot checks its range by reading the ids back to the host off the
+    # card; a comparison with the expert ids gives the same counts on every
+    # device and reads nothing
+    hits = r.topi[..., None] == torch.arange(e, device=r.topi.device)
+    dispatch_frac = hits.float().sum(1).mean(0)
     prob_frac = r.probs.mean(0)
     aux = e * torch.sum(dispatch_frac / k * prob_frac)
     return out, aux

@@ -153,7 +153,7 @@ def _sinusoid(s: int, d: int, dtype, device):
     """Sinusoidal positions (s, d), computed in float32, then cast."""
     pos = torch.arange(s, device=device, dtype=torch.float32)[:, None]
     dim = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
-    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    ang = pos / torch.pow(10000.0, 2 * dim / d)  # a host scalar: no copy to the card
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 

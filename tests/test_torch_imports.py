@@ -49,5 +49,6 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.models.whisper", "repro_torch.configs.zamba2_1p2b",
                  "repro_torch.configs.rwkv6_7b", "repro_torch.configs.whisper_medium",
                  "repro_torch.configs.shapes", "repro_torch.launch.dryrun",
-                 "repro_torch.utils.opstats", "repro_torch.utils.roofline"):
+                 "repro_torch.utils.opstats", "repro_torch.utils.roofline",
+                 "repro_torch.train.graph"):
         assert name in result["imported"]
