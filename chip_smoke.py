@@ -57,7 +57,10 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    ``OffloadManager`` on an f32 arena on the card (put, spill, fetch, get),
    bit-exact, every gather and scatter of it equal bit for bit to its plain
    version at the path's own chunk maps, and the arena empty after
-   ``drop``;
+   ``drop``; after the path's launch counts are read, both copy kernels
+   timed as phase 5 times them at the largest moment's chunk map (the
+   embedding's, 54 f32 chunks), beside their bound, plain version and
+   library call;
 7. supervised serving under faults, with launch counts zeroed before it
    and read after: (a) ``serve.killrecover``'s scenario for gmlake,
    caching, ellm and hybrid on the card, each held to the CPU port's run
@@ -110,8 +113,10 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    (c) and all > 0 after (d); (e) zamba2-1.2b and whisper-medium trained 5
    steps at full width through ``repro_torch.launch.train`` on the graphed
    step (finite losses within ``TRAIN_LOSS_RTOL_BF16`` of the eager step's,
-   no restart, one capture, ms/step and peak memory), then the eager and
-   graphed steps timed in turns by ``measure``; phase 9's wall time;
+   no restart, one capture, ms/step and peak memory), then the graphed
+   step timed by ``measure`` (one turn; the eager step's figures are
+   PERF.md's, and whether the profiler sees inside replays is 6b's verdict);
+   phase 9's wall time;
 10. parallelism on a one-rank ``nccl`` group (``launch/mesh.py``), destroyed
    at the end: (a) phase 6b's run (smollm-135m at full width, bf16, remat,
    same seed and batches) cut to ``PAR_STEPS`` steps through the sharded
@@ -119,8 +124,8 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    (1, 1) mesh, on the graphed step (one capture): every loss within
    ``TRAIN_LOSS_RTOL_BF16`` of 6b's first steps (and whether bit-equal),
    every state leaf a DTensor on the mesh with the rules' placements; then
-   ``measure`` of the eager and graphed sharded step in turns (ms/step,
-   peak memory, device busy and idle share, kernels a step) beside 6b's;
+   ``measure`` of the graphed sharded step (ms/step, peak memory, device
+   busy and idle share, kernels a step; one turn, as 9e) beside 6b's turns;
    (b) dbrx-132b at full width cut to ``DBRX_LAYERS`` (phase 8's weights,
    kept on the host meanwhile), one loss and the router and expert
    gradients at batch 2 x seq 256 through ``moe_apply_a2a`` on the
@@ -145,15 +150,21 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    decode_32k ok and long_500k skipped, decode_32k's
    per-device argument bytes the reference's 96,905,795,200, and
    train_4k's per-device matmul FLOPs x 256 within ``DOT_FLOPS_RTOL`` of
-   the one-rank count at the same global batch. No kernel runs in phase 11.
+   the one-rank count at the same global batch. No kernel runs in phase 11;
+12. the engine-trace recorder (``examples/record_engine_trace_torch.py``)
+   on the card: its ``default`` and ``multitenant`` scenarios, each trace
+   equal event for event, in decode steps and, saved, byte for byte to its
+   checked-in recording in ``tests/data/``; its engine decodes on the dense
+   cache, so the launch counts, zeroed before, stay 0 and are reported.
 
 Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
 is each kernel's count on the serving path, phases 3-4, whose shapes phase
 5 times; ``launches_by_path`` has it beside the training path's, phase 6,
 the kill/recover path's, phase 7, the MoE serving path's, 8a-b, 8d's, and
-the new families', 9c-d), a ``{"kill_recover": {...}}``, a ``{"moe":
-{...}}``, a ``{"new_families": {...}}`` and a ``{"dryrun": {...}}`` line
+the new families', 9c-d, and the recorder's, 12), a ``{"kill_recover":
+{...}}``, a ``{"moe": {...}}``, a ``{"new_families": {...}}``, a
+``{"dryrun": {...}}`` and a ``{"record_engine_trace": {...}}`` line
 (phase 10 prints its three ``{"parallel": {...}}`` lines and phases 6b, 9e
 and 10a one ``{"graph": {...}}`` line per path as they run), then
 the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -692,45 +703,53 @@ def lake(rng, eng, what: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def timings(inp: dict, counts: dict) -> list:
+def copy_times(arena: torch.Tensor, cmap: torch.Tensor) -> dict:
+    """``stitch_gather`` and ``stitch_scatter`` on ``arena`` at ``cmap``:
+    each held bit for bit to its plain version, then its device time, call
+    time, plain version's and one-call library yardstick's device time
+    (``index_select``, ``index_copy_``) beside its byte bound (each logical
+    chunk read once and written once, and the map read). The scatter writes
+    the gathered values back in place."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.stitch_copy import stitch_gather, stitch_scatter
-    from repro_torch.kernels.stitched_attention import stitched_decode_attention
 
-    arena, cmap = inp["arena"], inp["cmap"]
     cmap_long = cmap.long()
     copy_bytes = 2 * cmap.numel() * arena.shape[1] * arena.element_size() + cmap.numel() * 4
+    bound = dict(bound_ms=copy_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     values = stitch_gather(arena, cmap)
-    rows = []
 
     gather_err = max_err(stitch_gather(arena, cmap), ref.stitch_gather_ref(arena, cmap))
     assert gather_err == 0.0, gather_err
-    rows.append(dict(
-        name="stitch_gather", route="cuda", source="src/repro_torch/csrc/stitch_copy.cu",
-        replaces="src/repro/kernels/stitch_copy.py:38",
-        launches=counts["stitch_gather"], max_abs_err=gather_err,
-        ms=time_ms(lambda: stitch_gather(arena, cmap)),
+    gather = dict(
+        max_abs_err=gather_err, ms=time_ms(lambda: stitch_gather(arena, cmap)),
         call_ms=call_ms(lambda: stitch_gather(arena, cmap)),
-        plain_ms=time_ms(lambda: ref.stitch_gather_ref(arena, cmap)),
-        bound_ms=copy_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        plain_ms=time_ms(lambda: ref.stitch_gather_ref(arena, cmap)), **bound,
         library_ms=time_ms(lambda: torch.index_select(arena, 0, cmap_long)),
-    ))
+    )
 
     a1, a2 = arena.clone(), arena.clone()
     scatter_err = max_err(stitch_scatter(a1, cmap, values),
                           ref.stitch_scatter_ref(a2, cmap, values))
     assert scatter_err == 0.0 and torch.equal(a1, a2), scatter_err
     del a1, a2
-    rows.append(dict(
-        name="stitch_scatter", route="cuda", source="src/repro_torch/csrc/stitch_copy.cu",
-        replaces="src/repro/kernels/stitch_copy.py:65",
-        launches=counts["stitch_scatter"], max_abs_err=scatter_err,
-        ms=time_ms(lambda: stitch_scatter(arena, cmap, values)),
+    scatter = dict(
+        max_abs_err=scatter_err, ms=time_ms(lambda: stitch_scatter(arena, cmap, values)),
         call_ms=call_ms(lambda: stitch_scatter(arena, cmap, values)),
-        plain_ms=time_ms(lambda: ref.stitch_scatter_ref(arena, cmap, values)),
-        bound_ms=copy_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        plain_ms=time_ms(lambda: ref.stitch_scatter_ref(arena, cmap, values)), **bound,
         library_ms=time_ms(lambda: arena.index_copy_(0, cmap_long, values)),
-    ))
+    )
+    return {"stitch_gather": gather, "stitch_scatter": scatter}
+
+
+def timings(inp: dict, counts: dict) -> list:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stitched_attention import stitched_decode_attention
+
+    copies = copy_times(inp["arena"], inp["cmap"])
+    rows = [dict(name=name, route="cuda", source="src/repro_torch/csrc/stitch_copy.cu",
+                 replaces=replaces, launches=counts[name], **copies[name])
+            for name, replaces in (("stitch_gather", "src/repro/kernels/stitch_copy.py:38"),
+                                   ("stitch_scatter", "src/repro/kernels/stitch_copy.py:65"))]
 
     q, view, ptk, ptv, sl = inp["q"], inp["view"], inp["ptk"], inp["ptv"], inp["sl"]
     b, h, d = q.shape
@@ -961,14 +980,23 @@ def turn_figures(timing: dict, busy_measured: bool) -> dict:
                 profiled_ms_per_step=prof["ms_per_step"], wall_s=timing["wall_s"])
 
 
-def graph_line(path: str, card: str, rows: dict, losses: dict, **extra) -> dict:
+def graph_line(path: str, card: str, rows: dict, losses: dict, sees_replays=None,
+               **extra) -> dict:
     """Print one ``{"graph": {...}}`` line: each eager and graphed turn's
     ms/step, device busy, idle share, kernels a step and peak memory. If the
     profiler records under a tenth of the eager kernels a step in replays,
     it does not see inside the graph: busy and idle are "not measured" there
-    and the CUDA-event ms/step stands."""
-    eager_k = min(t["profiled"]["kernels_per_step"] for t in rows["eager"])
-    seen = all(t["profiled"]["kernels_per_step"] >= 0.1 * eager_k for t in rows["graph"])
+    and the CUDA-event ms/step stands. Whether it does is a property of the
+    torch build, not of the model, so a path timed without an eager turn
+    takes ``sees_replays``, 6b's verdict in the same run, and says so."""
+    if rows["eager"]:
+        eager_k = min(t["profiled"]["kernels_per_step"] for t in rows["eager"])
+        seen = all(t["profiled"]["kernels_per_step"] >= 0.1 * eager_k for t in rows["graph"])
+        extra["profiler_verdict_from"] = path
+    else:
+        assert sees_replays is not None, path
+        seen = sees_replays
+        extra["profiler_verdict_from"] = "6b"
     row = dict(path=path, card=card, losses=losses, profiler_sees_replays=seen,
                eager=[turn_figures(t, True) for t in rows["eager"]],
                graph=[turn_figures(t, seen) for t in rows["graph"]], **extra)
@@ -1089,7 +1117,8 @@ def offload_roundtrip(tensors: dict, what: str):
     fetch) the whole arena against ``stitch_scatter_ref`` applied to a copy
     of the arena from before it, and each load (spill, get) against
     ``stitch_gather_ref`` of the arena it read. Returns (summary, the
-    tensors ``get`` gave back)."""
+    tensors ``get`` gave back, the arena's buffer and the largest tensor's
+    chunk map as ``put`` placed it)."""
     from repro_torch.alloc import CHUNK_SIZE
     from repro_torch.core.arena import Arena, ArenaConfig
     from repro_torch.core.offload import OffloadManager
@@ -1117,12 +1146,14 @@ def offload_roundtrip(tensors: dict, what: str):
         return ref.stitch_gather_ref(arena.buf, chunk_map(name)).reshape(-1)[:t.numel()] \
             .reshape(t.shape)
 
-    maps = []
+    maps, largest = [], max(tensors, key=lambda n: tensors[n].numel())
     for name, t in tensors.items():
         before = arena.buf.clone()
         om.put(name, t)
         stored(name, before)
         maps.append(chunk_map(name).numel())
+        if name == largest:
+            largest_map = chunk_map(name)
     for name in tensors:
         want = gathered(name)
         om.spill(name)
@@ -1148,7 +1179,24 @@ def offload_roundtrip(tensors: dict, what: str):
         f"{min(maps)}-{max(maps)} chunks) put, spilled, fetched and read back bit-exact "
         f"through a {chunks + 8}-chunk arena, every store and load equal bit for bit to "
         f"the plain scatter and gather; active bytes 0 after drop")
-    return dict(leaves=len(tensors), bytes=nbytes, chunks_per_leaf=[min(maps), max(maps)]), back
+    return (dict(leaves=len(tensors), bytes=nbytes, chunks_per_leaf=[min(maps), max(maps)]),
+            back, dict(arena=arena.buf, cmap=largest_map, leaf=largest))
+
+
+def offload_copy_times(probe: dict, card: str) -> dict:
+    """6c's copy kernels timed as phase 5 times them, at the offload path's
+    largest chunk map in its f32 arena (the embedding's first moment),
+    after the path's launch counts are read: these launches compare and
+    time, they are not the path's."""
+    arena, cmap = probe["arena"], probe["cmap"]
+    times = copy_times(arena, cmap)
+    for name, t in times.items():
+        log(f"phase 6c: {name} at {probe['leaf']}'s {cmap.numel()} f32 chunks "
+            f"({cmap.numel() * arena.shape[1] * 4 / 1e6:.1f} MB) on {card}: "
+            f"{t['ms']:.5f} ms device ({t['call_ms']:.5f} per call), bound {t['bound_ms']:.5f} "
+            f"ms ({100 * t['bound_ms'] / t['ms']:.1f} %), plain {t['plain_ms']:.5f}, library "
+            f"{t['library_ms']:.5f}")
+    return dict(leaf=probe["leaf"], chunks=cmap.numel(), card=card, **times)
 
 
 def train_path(card: str) -> dict:
@@ -1164,12 +1212,13 @@ def train_path(card: str) -> dict:
         result, state, timing, graph = supervised_training(Path(workdir), card)
     from repro_torch.tree import flatten_with_path
 
-    offload, _ = offload_roundtrip(dict(flatten_with_path(state.opt.mu)),
-                                   "phase 6c: the trained first moments")
+    offload, _, probe = offload_roundtrip(dict(flatten_with_path(state.opt.mu)),
+                                          "phase 6c: the trained first moments")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"phase 6: kernel launches on the training path {counts}")
     assert counts["stitch_gather"] > 0 and counts["stitch_scatter"] > 0, counts
+    offload["copy_times"] = offload_copy_times(probe, card)
     return dict(counts=counts, parity_rel=rels, timing=timing, graph=graph, offload=offload,
                 steps=result["steps"], losses=[h["loss"] for h in result["history"]],
                 first_loss=result["first_loss"],
@@ -1973,8 +2022,8 @@ def full_width_family(arch: str, rng, card: str) -> dict:
         f"{row['peak_allocated_bytes'] / 2**30:.3f} GiB")
 
     if arch == "rwkv6-7b":
-        summary, back = offload_roundtrip({"wkv": cache["wkv"]},
-                                          f"phase 9d: {arch}'s WKV state")
+        summary, back, _ = offload_roundtrip({"wkv": cache["wkv"]},
+                                             f"phase 9d: {arch}'s WKV state")
         moved = dict(cache, wkv=back["wkv"])
         kept = {k: v.clone() for k, v in cache.items()}
         toks = ints(rng.integers(0, cfg.vocab, size=(STATE_DECODE, FULL_BATCH)))
@@ -1997,14 +2046,15 @@ def full_width_family(arch: str, rng, card: str) -> dict:
     return row
 
 
-def train_new_families(card: str) -> dict:
+def train_new_families(card: str, sees_replays: bool) -> dict:
     """9e: zamba2-1.2b and whisper-medium at full width trained through
     ``repro_torch.launch.train`` on the graphed step (bf16, remat on): every
     loss finite and within one bf16 rounding of the eager step's on the same
     steps, no restart, one capture; the launcher run's ms/step (host clock
     between steps, which end with the loss read back; the warm-up and
-    capture steps left out) and peak memory; then the eager and graphed
-    steps timed in turns by ``measure``. rwkv6-7b is left out
+    capture steps left out) and peak memory; then the graphed step timed by
+    ``measure`` (no eager turn: the eager step's figures are PERF.md's, and
+    ``sees_replays`` is 6b's profiler verdict). rwkv6-7b is left out
     (``NEW_TRAIN_ARCHS``)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
@@ -2048,17 +2098,19 @@ def train_new_families(card: str) -> dict:
                 f"{result['peak_reserved_bytes'] / 2**30:.3f} GiB")
             step_fn = make_train_step(cfg, opt.AdamWConfig(lr=args.lr))
             state, timing = graph_turns(step_fn, state, launcher_data(cfg, args).batch_at,
-                                        args.steps, ("eager", "graph"))
-            rows[arch]["turns"] = graph_line(f"9e {arch}", card, timing, held, arch=arch)
+                                        args.steps, ("graph",))
+            rows[arch]["turns"] = graph_line(f"9e {arch}", card, timing, held, sees_replays,
+                                             arch=arch)
             del state
     log("phase 9e: rwkv6-7b is not trained: its f32 AdamW moments (56 GB), bf16 weights "
         "(14 GB) and gradients (14 GB) exceed the card's 80 GB")
     return rows
 
 
-def new_families(card: str, rng) -> dict:
+def new_families(card: str, rng, sees_replays: bool) -> dict:
     """Phase 9. 9a-9b use no kernel; the launch counts are zeroed before 9c
-    and read after 9d, and every kernel must have launched."""
+    and read after 9d, and every kernel must have launched. 9e takes 6b's
+    profiler verdict, ``sees_replays``."""
     from repro_torch.kernels import ops
 
     t_phase = time.perf_counter()
@@ -2071,7 +2123,7 @@ def new_families(card: str, rng) -> dict:
     counts = ops.launch_counts()
     log(f"phase 9d: kernel launches on the new families' path {counts}")
     assert all(n > 0 for n in counts.values()), counts
-    trained = train_new_families(card)
+    trained = train_new_families(card, sees_replays)
     wall = round(time.perf_counter() - t_phase, 3)
     log(f"phase 9: wall time {wall} s")
     return dict(counts=counts, smoke=smoke, layers=layers, full=full, train=trained,
@@ -2090,8 +2142,9 @@ def parallel_line(leg: str, card: str, row: dict) -> None:
 def sharded_training(card: str, trained: dict) -> dict:
     """10a: phase 6b's run cut to ``PAR_STEPS`` steps through the launcher's
     sharded path (``--model-parallel 2``, a (1, 1) mesh on one rank), on the
-    graphed step, then the eager and graphed sharded steps timed and
-    profiled in turns by ``measure``, beside 6b's."""
+    graphed step, then the graphed sharded step timed and profiled by
+    ``measure`` (no eager turn: the eager step's figures are PERF.md's, and
+    the profiler's verdict is 6b's), beside 6b's turns."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_arch
@@ -2130,12 +2183,13 @@ def sharded_training(card: str, trained: dict) -> dict:
         batch = data.batch_at(step)
         return S.place_tree(batch, S.batch_shardings(batch, rules, mesh))
 
-    state, timing = graph_turns(step_fn, state, batch_at, args.steps, ("eager", "graph"))
-    turns = graph_line("10a", card, timing, held, arch=cfg.name)
+    state, timing = graph_turns(step_fn, state, batch_at, args.steps, ("graph",))
+    turns = graph_line("10a", card, timing, held, trained["graph"]["profiler_sees_replays"],
+                       arch=cfg.name)
     row = dict(arch=cfg.name, mesh=result["mesh"], world=result["world"],
                backend=result["backend"], fallbacks=result["fallbacks"], steps=result["steps"],
                graphs=result["graphs"], losses=losses, plain_losses=plain, **held,
-               eager=turns["eager"][0], graph=turns["graph"][0],
+               graph=turns["graph"][0],
                phase6b=dict(eager=trained["graph"]["eager"][0],
                             graph=trained["graph"]["graph"][0]))
     log(f"phase 10a: {cfg.name} on the sharded launcher path, mesh {result['mesh']['shape']} "
@@ -2143,9 +2197,9 @@ def sharded_training(card: str, trained: dict) -> dict:
         f"placements, {result['graphs']} capture; losses {['%.6f' % x for x in losses]} vs "
         f"6b's {['%.6f' % x for x in plain]} (max rel {row['max_rel']:.3g}, bit-equal "
         f"{row['bit_equal']}); "
-        f"steady state on {card}: sharded eager {row['eager']['ms_per_step']:.3f} / graphed "
-        f"{row['graph']['ms_per_step']:.3f} ms/step (6b {row['phase6b']['eager']['ms_per_step']:.3f}"
-        f" / {row['phase6b']['graph']['ms_per_step']:.3f}); fallbacks {result['fallbacks']}")
+        f"steady state on {card}: sharded graphed {row['graph']['ms_per_step']:.3f} ms/step "
+        f"(6b eager {row['phase6b']['eager']['ms_per_step']:.3f} / graphed "
+        f"{row['phase6b']['graph']['ms_per_step']:.3f}); fallbacks {result['fallbacks']}")
     del state
     torch.cuda.empty_cache()
     return row
@@ -2398,6 +2452,60 @@ def dryrun(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the engine-trace recorder
+# ---------------------------------------------------------------------------
+
+
+def record_traces(card: str) -> dict:
+    """Phase 12: ``record`` and ``record_multitenant`` of
+    ``examples/record_engine_trace_torch.py`` on the card, each trace held
+    event for event and in decode steps to its checked-in recording (so a
+    failure says where they part), then saved under a temporary directory in
+    ``build/`` and held byte for byte to it. The engine decodes on its dense
+    cache and drives the stitched KV cache for accounting only, so the path
+    launches no kernel: the counts, zeroed before, are reported."""
+    from repro_torch.core.trace import load_trace
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import record_engine_trace_torch as recorder
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    rows = {}
+    with tempfile.TemporaryDirectory(dir=build_dir, prefix="traces-") as out:
+        for scenario, name in recorder.FILE_NAMES.items():
+            record = recorder.record if scenario == "default" else recorder.record_multitenant
+            t0 = time.perf_counter()
+            trace = record(device=DEVICE)
+            wall = sync_s(t0)
+            golden = ROOT / "tests" / "data" / name
+            want = load_trace(golden)
+            got_ev, want_ev = trace_events(trace), trace_events(want)
+            part = next((i for i, (a, b) in enumerate(zip(got_ev, want_ev)) if a != b),
+                        min(len(got_ev), len(want_ev)))
+            assert got_ev == want_ev, (scenario, len(got_ev), len(want_ev), part,
+                                       got_ev[part:part + 3], want_ev[part:part + 3])
+            steps = trace.meta["decode_steps"]
+            assert steps == want.meta["decode_steps"], (scenario, steps, want.meta)
+            path = Path(out) / name
+            trace.save(path)
+            assert path.read_bytes() == golden.read_bytes(), (scenario, trace.meta, want.meta)
+            rows[scenario] = dict(events=len(got_ev), allocs=trace.n_allocs,
+                                  decode_steps=steps, wall_s=wall)
+            log(f"phase 12: {scenario} trace on {card}: {len(got_ev)} events "
+                f"({trace.n_allocs} allocs, mean {trace.mean_alloc_mb:.1f} MB), {steps} decode "
+                f"steps in {wall} s, byte-identical to tests/data/{name}")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"phase 12: kernel launches on the recorder's path {counts} (its engine decodes on "
+        f"the dense cache)")
+    return dict(card=card, counts=counts, **rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2449,16 +2557,18 @@ def main() -> int:
     trained = train_path(card)
     kr = kill_recover(card, rng)
     moe = moe_path(card, rng)
-    fams = new_families(card, rng)
+    fams = new_families(card, rng, trained["graph"]["profiler_sees_replays"])
     parallel(card, trained, moe.pop("host_params"))
     dry = dryrun(card)
+    record = record_traces(card)
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
                                    "kill_recover": kr["counts"][row["name"]],
                                    "moe": moe["counts"][row["name"]],
                                    "families": moe["family_counts"][row["name"]],
-                                   "new_families": fams["counts"][row["name"]]}
+                                   "new_families": fams["counts"][row["name"]],
+                                   "record": record["counts"][row["name"]]}
     print(json.dumps({"attention_shapes": shapes, "new_geometries": geometries}))
     print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
@@ -2469,6 +2579,7 @@ def main() -> int:
     print(json.dumps({"new_families": {k: v for k, v in fams.items() if k != "counts"}},
                      default=str))
     print(json.dumps({"dryrun": dry}, default=str))
+    print(json.dumps({"record_engine_trace": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ cannot hold.
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -150,7 +151,11 @@ class Recorded(CheckpointManager):
 def supervised(tmp_path, name, fail_at=None):
     """Ten supervised steps of the wrapped step, checkpoints every 3, an
     optional fault; every call's static leaves' storage is recorded, and a
-    state the supervisor re-enters with is held bit-exact after ``load``."""
+    state the supervisor re-enters with is held bit-exact after ``load``.
+    The supervisor reads a steady fake clock (one tick per reading): on the
+    wall clock a step slowed 3x by busy neighbours or the background
+    checkpoint writes logs a straggler event, which the event checks would
+    take for a fault."""
     adamw, state = fresh()
     graphed = GraphedStep(make_train_step(SMOKE, adamw), CPU)
     ptrs, loads = [], []
@@ -166,7 +171,8 @@ def supervised(tmp_path, name, fail_at=None):
         return state, m
 
     ckpt = Recorded(tmp_path / name)
-    sup = Supervisor(step, pipeline(SMOKE).batch_at, ckpt, SupervisorConfig(checkpoint_every=3))
+    sup = Supervisor(step, pipeline(SMOKE).batch_at, ckpt, SupervisorConfig(checkpoint_every=3),
+                     clock=itertools.count().__next__)
 
     def inject(i):
         if i == fail_at and not inject.fired:
