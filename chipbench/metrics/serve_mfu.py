@@ -1,0 +1,11 @@
+"""Model FLOPs of the window's prefill and decode tokens (attention over
+the valid lengths only; ``harness.flops``) over the window's seconds, as a
+share of the H100's 989 TFLOP/s bf16 peak."""
+
+from harness.flops import PEAK_BF16_FLOPS
+
+
+def read(record, profile):
+    if record["kind"] != "closed_loop" or not record["model_flops"]:
+        return None
+    return record["model_flops"] / record["window_s"] / PEAK_BF16_FLOPS * 100
