@@ -17,6 +17,12 @@ and 256 spare bytes per chunk), the token view uses the first
 ``chunk_tokens * n_kv * head_dim`` elements of each chunk and leaves the
 tail unused; wherever the row does divide 2 MB this is the reference's
 layout exactly. (The reference reshapes the whole chunk and raises there.)
+
+``add_sequence``, ``append_tokens`` and ``free_sequence`` are the spans
+``kv.add``, ``kv.append`` and ``kv.free``, carrying the sequence id; while
+tracing is on, the counters ``kv.S1`` ... ``kv.S5`` add the change in the
+backend's Algorithm 1 tallies (``state_counts``, gmlake-style backends)
+across each call (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..alloc.caching_allocator import Allocation
 from ..alloc.chunks import CHUNK_SIZE
 from ..device import DeviceLike
 from ..kernels import ops
+from ..utils import tracing
 from .arena import Arena, ArenaConfig
 from .trace import TraceRecorder
 
@@ -94,26 +101,48 @@ class StitchedKVCache:
     # ------------------------------------------------------------------
     def add_sequence(self, seq_id: int, n_tokens: int) -> None:
         assert seq_id not in self.seqs
-        state = _SeqState()
-        self.seqs[seq_id] = state
-        self._grow_to(state, n_tokens)
-        state.length = n_tokens
+        before = self._state_counts()
+        with tracing.span("kv.add", seq_id):
+            state = _SeqState()
+            self.seqs[seq_id] = state
+            self._grow_to(state, n_tokens)
+            state.length = n_tokens
+        self._count_states(before)
 
     def append_tokens(self, seq_id: int, n: int = 1) -> None:
-        state = self.seqs[seq_id]
-        if state.length + n > state.capacity_tokens:
-            want = max(
-                state.length + n,
-                int(state.capacity_tokens * (1.0 + self.config.growth)),
-            )
-            self._grow_to(state, want)
-        state.length += n
+        before = self._state_counts()
+        with tracing.span("kv.append", seq_id):
+            state = self.seqs[seq_id]
+            if state.length + n > state.capacity_tokens:
+                want = max(
+                    state.length + n,
+                    int(state.capacity_tokens * (1.0 + self.config.growth)),
+                )
+                self._grow_to(state, want)
+            state.length += n
+        self._count_states(before)
 
     def free_sequence(self, seq_id: int) -> None:
-        state = self.seqs.pop(seq_id)
-        for allocs in state.allocs.values():
-            for a in allocs:
-                self.arena.free(a)
+        before = self._state_counts()
+        with tracing.span("kv.free", seq_id):
+            state = self.seqs.pop(seq_id)
+            for allocs in state.allocs.values():
+                for a in allocs:
+                    self.arena.free(a)
+        self._count_states(before)
+
+    def _state_counts(self) -> Optional[Dict[str, int]]:
+        """The backend's S1-S5 tallies while tracing is on, else None."""
+        if not tracing.on():
+            return None
+        counts = getattr(self.arena.allocator, "state_counts", None)
+        return dict(counts) if counts is not None else None
+
+    def _count_states(self, before: Optional[Dict[str, int]]) -> None:
+        if before is not None:
+            for k, v in self.arena.allocator.state_counts.items():
+                if v != before[k]:
+                    tracing.count(f"kv.{k}", v - before[k])
 
     def _grow_to(self, state: _SeqState, n_tokens: int) -> None:
         c = self.config

@@ -4,16 +4,21 @@ Counterpart of ``repro.models.api``, with all six of its families; the
 launchers, the train step and the serving engine go through
 ``family_of(cfg)``. ``param_axes`` and ``cache_axes`` name every leaf's
 dims for the sharding rules (``repro_torch.parallel.sharding``);
-``param_shapes`` gives a config's param tree as meta tensors.
+``param_shapes`` gives a config's param tree as meta tensors. Every
+family's ``prefill`` and ``decode_step`` is a ``model.prefill`` /
+``model.decode`` span (``utils/tracing.py``): the host's dispatch of the
+step, since neither waits for the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict
 
 import torch
 
+from ..utils.tracing import spanned
 from . import layers as L
 from . import moe, paligemma, rwkv6, transformer, whisper, zamba2
 
@@ -58,6 +63,9 @@ FAMILIES: Dict[str, Family] = {
         paligemma.cache_axes,
     ),
 }
+FAMILIES = {k: dataclasses.replace(f, prefill=spanned("model.prefill")(f.prefill),
+                                   decode_step=spanned("model.decode")(f.decode_step))
+            for k, f in FAMILIES.items()}
 
 
 def param_shapes(cfg) -> Dict:

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..parallel.sharding import as_dtensor, note_site, redistribute, run_local
+from ..utils.tracing import count
 
 NEG_INF = -1e30
 
@@ -290,7 +291,9 @@ def _flash_fwd_blocks(q, kf, vf, prefix_len, causal, window, q_offset, kv_block,
         m = torch.full((b, h, q_block), NEG_INF, device=q.device)
         l = torch.zeros((b, h, q_block), device=q.device)
         acc = torch.zeros((b, q_block, h, d), device=q.device)
-        for j in _kv_range(qi, q_block, kvb, n_kv, causal, window, prefix_len, q_offset):
+        reach = _kv_range(qi, q_block, kvb, n_kv, causal, window, prefix_len, q_offset)
+        count("attn.fwd_tiles", len(reach))
+        for j in reach:
             kj, vj = kf[:, j * kvb:(j + 1) * kvb], vf[:, j * kvb:(j + 1) * kvb]
             kv_pos = j * kvb + torch.arange(kvb, device=q.device)
             s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kj.float())

@@ -12,6 +12,10 @@ admission, growth and retirement drives the GMLake-backed
 stitched data path (``StitchedKVCache.write_tokens`` / ``decode_attention``,
 which reach the CUDA kernels) is held against this dense path by
 ``chip_smoke.py``.
+
+Its steps, admissions, prefills, decodes and samplings are spans
+(``serve.*``) with counters of the work, while tracing is on
+(``utils/tracing.py``; ``docs/TRACING_TORCH.md``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..core.kvcache import KVCacheConfig, StitchedKVCache
 from ..core.trace import TraceRecorder
 from ..device import DeviceLike, resolve_device
 from ..models.api import family_of
+from ..utils.tracing import count, span, spanned
 
 #: Admission priority per SLO class (lower admits first). Requests with an
 #: empty or unknown class share the default rank, so single-tenant
@@ -122,6 +127,7 @@ class ServeEngine:
         return rid
 
     # ------------------------------------------------------------------
+    @spanned("serve.admit")
     def _admit(self) -> None:
         # SLO-class admission: interactive ahead of standard ahead of
         # batch; the sort is stable, so same-class requests (and every
@@ -141,8 +147,11 @@ class ServeEngine:
             # is an optimization the engine does not need for correctness)
             cache = self.fam.init_cache(self.cfg, 1, self.ecfg.max_len, self.device)
             tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
-            logits, cache = self.fam.prefill(self.cfg, self.params, {"tokens": tokens}, cache)
-            req.generated.append(int(torch.argmax(logits[0, -1])))
+            count("serve.admitted")
+            count("serve.prefill_tokens", len(req.prompt))
+            with span("serve.prefill", req.req_id):
+                logits, cache = self.fam.prefill(self.cfg, self.params, {"tokens": tokens}, cache)
+                req.generated.append(int(torch.argmax(logits[0, -1])))
             if req.first_token_step is None:
                 req.first_token_step = self.steps
             self._merge_cache(slot, cache)
@@ -170,6 +179,7 @@ class ServeEngine:
                 self._cache[name][slot : slot + 1] = one
 
     # ------------------------------------------------------------------
+    @spanned("serve.step")
     def step(self) -> int:
         """One decode step over the running batch. Returns #finished."""
         self._dirty = True
@@ -183,10 +193,13 @@ class ServeEngine:
         tokens = np.zeros((self.ecfg.max_batch,), np.int32)
         for r, s in zip(reqs, slots):
             tokens[s] = r.generated[-1]
-        logits, self._cache = self.fam.decode_step(
-            self.cfg, self.params, self._cache, torch.as_tensor(tokens, device=self.device)
-        )
-        next_tokens = torch.argmax(logits, dim=-1).tolist()
+        with span("serve.decode"):  # keeps the decode call out of serve.step's self time
+            logits, self._cache = self.fam.decode_step(
+                self.cfg, self.params, self._cache, torch.as_tensor(tokens, device=self.device)
+            )
+        count("serve.decoded_rows", len(reqs))
+        with span("serve.sample"):  # where an untraced host waits for the decode
+            next_tokens = torch.argmax(logits, dim=-1).tolist()
         finished = 0
         for r, s in zip(reqs, slots):
             r.generated.append(next_tokens[s])

@@ -29,6 +29,14 @@ and keeps its signature, ``(state, batch) -> (state, metrics)``:
   into the static leaves once; nothing is captured again.
 * **Metrics** are cloned out of the graph's outputs after each replay, so
   they stay the caller's when the next replay overwrites the outputs.
+* **Phase events.** Each ``tracing.phase`` boundary of the body (forward,
+  backward, optimizer; ``train/step.py``) and its end, after the write-back,
+  records a timing event on the capture stream, an event-record node of the
+  graph: a replay re-records them, and they allocate nothing. After a
+  replay made while tracing is on, the graph hands them to the tracer,
+  which reads them as the phases' device times (and the whole replay's, as
+  ``graph.replay``) before the next replay of that graph or when it is read
+  (``utils/tracing.py``); tracing off, nothing waits for them.
 
 All graphs share one memory pool. That is safe in any order of replay: a
 graph reads only the static state and its own static batch, which live
@@ -45,13 +53,14 @@ failed capture or replay raises; nothing falls back to the eager step.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
 from ..tree import leaves
+from ..utils import tracing
 
 
 def signature(batch: Dict) -> Tuple:
@@ -85,11 +94,26 @@ class _Graph:
         self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.metrics: Optional[Dict] = None
+        #: (phase, event) at each phase boundary, then (None, event) at the end
+        self.marks: List[Tuple[Optional[str], torch.cuda.Event]] = []
 
     def load(self, batch: Dict) -> Dict:
         for k, v in batch.items():
             _local(self.batch[k]).copy_(_local(v))
         return self.batch
+
+    def mark(self, name: Optional[str]) -> None:
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        self.marks.append((name, event))
+
+    def resolve(self) -> None:
+        """The last replay's phase times, as device ms under their names."""
+        marks = self.marks
+        marks[-1][1].synchronize()
+        for (name, a), (_, b) in zip(marks, marks[1:]):
+            tracing.device(name, a.elapsed_time(b))
+        tracing.device("graph.replay", marks[0][1].elapsed_time(marks[-1][1]))
 
 
 class GraphedStep:
@@ -140,8 +164,11 @@ class GraphedStep:
         else:
             static = g.load(batch)
             if g.graph is None:
-                g.graph, g.metrics = self._capture(static)
+                g.graph, g.metrics = self._capture(g, static)
+            tracing.settle(g)  # the last replay's events, before they are recorded again
             g.graph.replay()
+            if g.marks and tracing.on():
+                tracing.defer(g, g.resolve)
             metrics = g.metrics
         return self.state, {k: v.clone() for k, v in metrics.items()}
 
@@ -172,12 +199,15 @@ class GraphedStep:
             v.record_stream(current)
         return metrics
 
-    def _capture(self, batch: Dict):
+    def _capture(self, g: _Graph, batch: Dict):
         graph = torch.cuda.CUDAGraph()
         # thread_local: another thread's CUDA calls (NCCL's watchdog) do not
         # invalidate the capture
         with torch.cuda.graph(graph, pool=self._pool, stream=_capture_stream(self.device),
                               capture_error_mode="thread_local"):
-            metrics = self._body(batch)
+            with tracing.boundaries(g.mark):
+                metrics = self._body(batch)
+            if g.marks:  # the last phase ends after the write-back
+                g.mark(None)
         self._pool = graph.pool()
         return graph, metrics

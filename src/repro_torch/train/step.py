@@ -15,6 +15,12 @@ replication, so the plain tensors the model code makes (positions, masks)
 act as replicated; each gradient is redistributed to its param's
 placements (a data-parallel gradient arrives as a partial sum), and the
 metrics are whole tensors.
+
+The step's phases are ``train.forward`` (the family's ``loss_fn``),
+``train.backward`` (``torch.autograd.grad``) and ``train.optimizer``
+(AdamW and the metrics): spans while tracing is on, and under a CUDA
+graph's capture the boundaries ``train/graph.py`` records as events
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.api import family_of
 from ..parallel.sharding import full, place_as, redistribute
 from ..tree import leaves, tree_map, unflatten_like
+from ..utils.tracing import phase
 from . import optimizer as opt
 
 
@@ -75,8 +82,10 @@ def make_train_step(cfg, adamw: opt.AdamWConfig, sharder=None,
     def loss_and_grads(params, batch):
         with torch.enable_grad():
             ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            loss = fam.loss_fn(cfg, ps, batch, sharder=sharder)
-            grads = torch.autograd.grad(loss, leaves(ps))
+            with phase("train.forward"):
+                loss = fam.loss_fn(cfg, ps, batch, sharder=sharder)
+            with phase("train.backward"):
+                grads = torch.autograd.grad(loss, leaves(ps))
         grads = [redistribute(g, p.placements) if isinstance(g, DTensor) else g
                  for g, p in zip(grads, leaves(params), strict=True)]
         return full(loss.detach()), unflatten_like(params, grads)
@@ -97,9 +106,10 @@ def make_train_step(cfg, adamw: opt.AdamWConfig, sharder=None,
                     lsum = lsum + l
                 grads = tree_map(lambda g: g / microbatches, gsum)
                 loss = lsum / microbatches
-            new_params, new_opt, metrics = opt.apply(adamw, state.params, grads, state.opt)
-            metrics = {k: full(v) for k, v in metrics.items()}
-            metrics["loss"] = loss
+            with phase("train.optimizer"):
+                new_params, new_opt, metrics = opt.apply(adamw, state.params, grads, state.opt)
+                metrics = {k: full(v) for k, v in metrics.items()}
+                metrics["loss"] = loss
             return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step

@@ -36,6 +36,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.graph import GraphedStep, signature
 from repro_torch.train.step import TrainState, init_state, make_train_step
 from repro_torch.tree import leaves
+from repro_torch.utils import tracing
 
 CPU = "cpu"
 SMOKE = get_arch("smollm-135m").smoke
@@ -227,6 +228,31 @@ def test_signature_and_restore_checks():
     bad = state._replace(step=torch.zeros((), dtype=torch.int64))
     with pytest.raises(ValueError, match="does not match"):
         step.load(bad)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_eager_phases_are_recorded_in_order(microbatches):
+    """On the CPU each call runs the body eagerly: with tracing on, its
+    phases are host spans under the three names, in order (forward and
+    backward once a microbatch), inside no other span; nothing is held for
+    the device."""
+    adamw, state = fresh()
+    step = GraphedStep(make_train_step(SMOKE, adamw, microbatches=microbatches), CPU)
+    data = pipeline(SMOKE)
+    tracing.reset()
+    tracing.enable()
+    try:
+        for i in range(2):
+            state, _ = step(state, data.batch_at(i))
+    finally:
+        tracing.disable()
+    snap = tracing.snapshot()
+    tracing.reset()
+    one = ["train.forward", "train.backward"] * microbatches + ["train.optimizer"]
+    assert [s.name for s in snap["spans"]] == one * 2
+    assert all(s.parent == -1 for s in snap["spans"])
+    assert "graph.replay" not in snap["names"]
+    assert all(v["device_ms"] == 0.0 for v in snap["names"].values())
 
 
 def test_launcher_runs_through_the_graphed_step(tmp_path):
