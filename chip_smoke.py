@@ -19,11 +19,15 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    a larger call grew the kernel's workspace; and at the KV geometries of
    the newer architectures (``NEW_GEOMETRIES``: dbrx/grok/internlm2,
    starcoder2, danube3, paligemma, zamba2, whisper), bf16 through
-   ``arena_view`` of 2 MiB chunks, lengths at tile and chunk edges;
+   ``arena_view`` of 2 MiB chunks, lengths at tile and chunk edges; and
+   ``decode_attention_dense``, which on the card runs the kernel over the
+   dense cache, against the plain dense path (``dense_plain``) at every
+   family's decode geometry (``DENSE_ROUTE_CASES``: the chat cell's,
+   danube3 windowed, whisper's cross-attention over 1500 frames);
 3. serve smollm-135m at full width through ``repro_torch.launch.serve``;
 4. the lake: write a mid-run engine's dense K/V into its own stitched KV
-   cache, compare stitched decode attention (the kernel) with the dense
-   path for every layer, and round-trip the embedding table bit-exact
+   cache, compare stitched decode attention (the kernel) with the plain
+   dense path for every layer, and round-trip the embedding table bit-exact
    through an arena fragmented by alloc/free churn; launch counts are
    zeroed before phase 3 and must all be > 0 after phase 4;
 5. at the shapes phase 4 used, hold each kernel against its plain version
@@ -33,8 +37,12 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
    with host work included (``call_ms``), and compute its bound; time
    decode attention also at long (16383-token) and ragged (64 sequences of
    1..16383 tokens) smollm-135m shapes, long shapes at dbrx-132b's and
-   starcoder2-15b's geometry, and an empty kernel in the same graph
-   harness as the practical floor of one launch;
+   starcoder2-15b's geometry, the dense route at the chat cell's shape
+   (``CHAT_SHAPE``) beside the plain dense path and one
+   ``scaled_dot_product_attention`` call (the yardstick only; timed last,
+   after phase 12, so that the workspaces its yardsticks' warm-up streams
+   keep do not count in 11a's process peak), and an empty kernel in the
+   same graph harness as the practical floor of one launch;
 6. the training path, with launch counts zeroed before it and read after:
    (a) the smoke config trained 10 steps on the card and on the CPU from
    the same seed and batches, in float32 (each loss within
@@ -154,10 +162,12 @@ Needs one CUDA card, ``nvcc`` and the repository checkout (it imports
 12. the engine-trace recorder (``examples/record_engine_trace_torch.py``)
    on the card: its ``default`` and ``multitenant`` scenarios, each trace
    equal event for event, in decode steps and, saved, byte for byte to its
-   checked-in recording in ``tests/data/``; its engine decodes on the dense
-   cache, so the launch counts, zeroed before, stay 0 and are reported.
+   checked-in recording in ``tests/data/``; its engine decodes through the
+   attention kernel on the dense cache, so of the launch counts, zeroed
+   before and reported, the kernel's must be above 0.
 
-Prints an ``{"attention_shapes": [...], "new_geometries": {...}}`` line, a
+Prints an ``{"attention_shapes": [...], "new_geometries": {...},
+"dense_route": {...}, "dense_route_chat": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"kernels": [...]}`` line (``launches``
 is each kernel's count on the serving path, phases 3-4, whose shapes phase
 5 times; ``launches_by_path`` has it beside the training path's, phase 6,
@@ -223,6 +233,29 @@ PARITY_STEPS = 10
 NEW_GEOMETRIES = [("dbrx/grok/internlm2", 48, 8, 128), ("starcoder2", 48, 4, 128),
                   ("danube3", 32, 8, 120), ("paligemma", 8, 1, 256),
                   ("zamba2", 32, 32, 64), ("whisper", 16, 16, 64)]
+#: phase 2's dense route: ``decode_attention_dense`` on the card (the kernel
+#: over one layer's dense cache) against ``dense_plain`` at every family's
+#: decode geometry: (name, H, KVH, D, B, S, window, dtype). Danube3 twice
+#: windowed: its smoke config's window 32 and its own 4096 over a longer
+#: cache (several splits merge); whisper's cross-attention over all 1500
+#: frames of every sequence
+DENSE_ROUTE_CASES = [
+    ("starcoder2 chat64", 48, 4, 128, 64, 1536, None, torch.bfloat16),
+    ("smollm-135m", 9, 3, 64, 8, 2048, None, torch.bfloat16),
+    ("danube3", 32, 8, 120, 8, 1024, None, torch.bfloat16),
+    ("danube3 window 32", 32, 8, 120, 8, 1024, 32, torch.bfloat16),
+    ("danube3 window 4096", 32, 8, 120, 4, 6144, 4096, torch.bfloat16),
+    ("danube3-smoke window 32", 8, 4, 16, 4, 96, 32, torch.float32),
+    ("internlm2/grok/dbrx", 48, 8, 128, 8, 1024, None, torch.bfloat16),
+    ("paligemma", 8, 1, 256, 2, 288, None, torch.bfloat16),
+    ("zamba2 shared", 32, 32, 64, 2, 1024, None, torch.bfloat16),
+    ("whisper self", 16, 16, 64, 8, 448, None, torch.bfloat16),
+    ("whisper cross", 16, 16, 64, 8, 1500, None, torch.bfloat16),
+    ("smollm-smoke", 3, 1, 32, 4, 64, None, torch.float32),
+]
+#: phase 5 times the dense route at the chat cell's shape: 64 sequences of
+#: 1..1536 tokens (seeded), starcoder2-15b's 48 query and 4 kv heads, D 128
+CHAT_SHAPE = (64, 48, 4, 128, 1536)
 #: phase 8a: dbrx-132b at full width cut to this depth (2 layers hold 6.34 B
 #: expert parameters, 12.7 GB in bf16), serving phase 3's workload
 DBRX_LAYERS = 2
@@ -352,6 +385,28 @@ def attn_close(got: torch.Tensor, want: torch.Tensor, what) -> float:
     return max_err(got, want)
 
 
+def dense_plain(q, k_cache, v_cache, lengths, window=None) -> torch.Tensor:
+    """The plain dense decode attention, ``decode_attention_dense``'s code for
+    CPU tensors, on any device: each kv head repeated to its query heads, the
+    cache cast to float32, a softmax over every position, the probabilities
+    rounded to q's dtype before P.V. On the card ``decode_attention_dense``
+    runs the kernel, so this is what the kernel is held to, and the old
+    path's time."""
+    from repro_torch.models.layers import NEG_INF, _expand_kv
+
+    h, d = q.shape[2], q.shape[3]
+    s = k_cache.shape[1]
+    kf, vf = _expand_kv(k_cache, h), _expand_kv(v_cache, h)
+    logits = torch.einsum("bqhd,bshd->bhqs", (q * d**-0.5).float(), kf.float())
+    pos = torch.arange(s, device=q.device)[None, :]
+    valid = pos < lengths.long()[:, None]
+    if window is not None:
+        valid = valid & (pos > (lengths.long()[:, None] - 1 - window))
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", p.float(), vf.float()).to(q.dtype)
+
+
 def call_ms(fn, iters: int = 20, reps: int = 7) -> float:
     """Time per call as a caller sees it, host work included: median over
     ``reps`` of ``iters`` back-to-back calls between CUDA events."""
@@ -435,7 +490,7 @@ def check_copy_kernels(rng) -> None:
 
 
 def _attn_check(rng, B, H, KVH, D, Tc, C, NP, dtype, seq_lens=None, separate_v=False,
-                chunk_elems=None):
+                chunk_elems=None, window=0):
     """One kernel-vs-plain comparison; returns the max abs error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.stitched_attention import stitched_decode_attention
@@ -452,12 +507,12 @@ def _attn_check(rng, B, H, KVH, D, Tc, C, NP, dtype, seq_lens=None, separate_v=F
         seq_lens = rng.integers(1, C * Tc + 1, size=B)
     sl = ints(seq_lens)
     if separate_v:
-        got = stitched_decode_attention(q, ka, ka, pt, sl, page_table_v=ptv)
-        want = ref.stitched_decode_attention_ref(q, ka, ka, pt, sl, ptv)
+        got = stitched_decode_attention(q, ka, ka, pt, sl, page_table_v=ptv, window=window)
+        want = ref.stitched_decode_attention_ref(q, ka, ka, pt, sl, ptv, window=window)
     else:
-        got = stitched_decode_attention(q, ka, va, pt, sl)
-        want = ref.stitched_decode_attention_ref(q, ka, va, pt, sl)
-    return attn_close(got, want, (B, H, KVH, D, Tc, C, dtype, seq_lens))
+        got = stitched_decode_attention(q, ka, va, pt, sl, window=window)
+        want = ref.stitched_decode_attention_ref(q, ka, va, pt, sl, window=window)
+    return attn_close(got, want, (B, H, KVH, D, Tc, C, dtype, seq_lens, window))
 
 
 def check_attention_kernel(rng) -> None:
@@ -487,6 +542,17 @@ def check_attention_kernel(rng) -> None:
         err_edges = max(err_edges, _attn_check(
             rng, B, H, KVH, D, Tc, C, NP, bf16, seq_lens=[tt - 1, tt, tt + 1, Tc - 1, Tc, Tc + 1],
             separate_v=True, chunk_elems=1 << 20))
+    # a sliding window: the walk starts inside a chunk, its first tile masks,
+    # splits count from there and merge (smollm's geometry, windows of a few
+    # tiles up to more than a chunk); and a window in float32 at tile size 1-64
+    err_window = _attn_check(rng, 8, 9, 3, 64, 5461, 3, 32, bf16, seq_lens=lens,
+                             separate_v=True, chunk_elems=1 << 20, window=6000)
+    for window in (1, 5, 100):
+        err_window = max(err_window, _attn_check(
+            rng, 8, 9, 3, 64, 5461, 3, 32, bf16, seq_lens=lens, chunk_elems=1 << 20,
+            window=window))
+        err_window = max(err_window, _attn_check(rng, 3, 9, 3, 64, 8, 5, 16, f32,
+                                                 seq_lens=[0, 5, 40], window=window))
     # chunk strides that are not a multiple of 16 bytes: plain loads fill the ring
     _attn_check(rng, 3, 9, 3, 64, 40, 3, 8, f32, seq_lens=[0, 39, 120],
                 chunk_elems=40 * 3 * 64 + 17)
@@ -497,6 +563,7 @@ def check_attention_kernel(rng) -> None:
     log(f"phase 2: decode attention within tolerance on {n} ATTN_CASES runs + separate-KV, "
         f"short, empty, smollm-full (max err {err_full:.3g}), engine-smoke "
         f"(max err {err_smoke:.3g}), tile/chunk-edge lengths (max err {err_edges:.3g}), "
+        f"sliding windows (max err {err_window:.3g}), "
         f"unaligned arenas, {GRAPH_REPLAYS} graph replays (max err {err_graph:.3g}) and "
         f"replays after the workspace grew (max err {err_grown:.3g}); worst share of the "
         f"row-scaled limit {attn_share:.4g}")
@@ -508,7 +575,8 @@ def check_new_geometries(rng) -> dict:
     strided view: danube3's 1092-token chunks leave 512 bytes unused), with
     K and V under separate tables and sequence lengths at the edges of the
     kernel's tiles and of the chunks (danube3's all below its 4096-token
-    window: neither this kernel nor the reference's has a window). Returns
+    window: the stitched path passes none; ``check_dense_route`` holds the
+    kernel's window). Returns
     each geometry's max abs error and plan."""
     from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
     from repro_torch.kernels import ref
@@ -541,6 +609,47 @@ def check_new_geometries(rng) -> dict:
     log(f"phase 2: decode attention at the new KV geometries (bf16, 2 MiB chunks through "
         f"arena_view, tile/chunk-edge and random lengths, separate K/V tables) within "
         f"tolerance: {out}")
+    return out
+
+
+def check_dense_route(rng) -> dict:
+    """``decode_attention_dense`` on the card, which runs the kernel over the
+    dense cache (B chunks of S tokens under the identity page table), held
+    to ``dense_plain`` at each of ``DENSE_ROUTE_CASES``: lengths at the
+    edges of the kernel's tiles, of the window and of the cache, then a
+    seeded ragged mix (whisper's cross-attention: every sequence all 1500
+    frames). Returns each case's max abs error and plan."""
+    from repro_torch.kernels.stitched_attention import attention_plan
+    from repro_torch.models.layers import decode_attention_dense
+
+    out = {}
+    for name, H, KVH, D, B, S, window, dtype in DENSE_ROUTE_CASES:
+        plan = attention_plan(B, H, KVH, D, S, 1, dtype.itemsize)
+        tt = plan.tile_tokens
+        k = rand(rng, (B, S, KVH, D), dtype)
+        v = rand(rng, (B, S, KVH, D), dtype)
+        if name == "whisper cross":
+            draws = [[S] * B]
+        else:
+            edges = [1, tt - 1, tt, tt + 1, S - 1, S]
+            if window:
+                edges += [window - 1, window, window + 1, window + tt + 1]
+            edges = sorted({n for n in edges if 1 <= n <= S})
+            draws = [(edges[i:i + B] + [S] * B)[:B] for i in range(0, len(edges), B)]
+            draws.append(rng.integers(1, S + 1, size=B).tolist())
+        err = 0.0
+        for lens in draws:
+            q = rand(rng, (B, 1, H, D), dtype)
+            sl = ints(lens)
+            got = decode_attention_dense(q, k, v, sl, window=window)
+            want = dense_plain(q, k, v, sl, window=window)
+            err = max(err, attn_close(got[:, 0], want[:, 0], (name, lens)))
+        out[name] = dict(tile_tokens=tt, kv_per_block=plan.kv_per_block, splits=plan.splits,
+                         tiles_per_split=plan.tiles_per_split, max_abs_err=err)
+        del k, v
+    torch.cuda.synchronize()
+    log(f"phase 2: dense decode attention through the kernel within tolerance of the plain "
+        f"dense path at every family's decode geometry: {out}")
     return out
 
 
@@ -648,7 +757,6 @@ def lake(rng, eng, what: str) -> dict:
     kernels on."""
     from repro_torch.alloc import CHUNK_SIZE
     from repro_torch.core.arena import Arena, ArenaConfig
-    from repro_torch.models.layers import decode_attention_dense
 
     for _ in range(LAKE_STEPS):
         eng.step()
@@ -667,10 +775,10 @@ def lake(rng, eng, what: str) -> dict:
     err = 0.0
     for layer in range(cfg.n_layers):
         got = kv.decode_attention(rids, layer, q)
-        want = decode_attention_dense(q[:, None], cache["k"][layer, slots],
-                                      cache["v"][layer, slots], lens_t)[:, 0]
+        want = dense_plain(q[:, None], cache["k"][layer, slots], cache["v"][layer, slots],
+                           lens_t)[:, 0]
         err = max(err, attn_close(got, want, (what, "lake layer", layer)))
-    log(f"{what}: stitched attention == dense attention on {cfg.n_layers} layers x "
+    log(f"{what}: stitched attention == plain dense attention on {cfg.n_layers} layers x "
         f"{len(rids)} sequences (lens {lens}, chunk_tokens {kv.config.chunk_tokens}), "
         f"max abs err {err:.3g}")
 
@@ -778,6 +886,50 @@ def timings(inp: dict, counts: dict) -> list:
         library_ms=None,
     ))
     return rows
+
+
+def dense_route_times(rng) -> dict:
+    """The dense route at the chat cell's shape (``CHAT_SHAPE``, bf16,
+    ragged lengths): held to ``dense_plain`` once, then the route's device
+    time and time per call, the plain path's device time (the dense decode
+    attention before the route: heads repeated, cache cast to float32), one
+    ``scaled_dot_product_attention`` call over the same cache with a length
+    mask as the yardstick only, and the bound: the valid tokens' K and V
+    read once, q read and the output written, over HBM bandwidth."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import decode_attention_dense
+
+    B, H, KVH, D, S = CHAT_SHAPE
+    k = rand(rng, (B, S, KVH, D), torch.bfloat16)
+    v = rand(rng, (B, S, KVH, D), torch.bfloat16)
+    q = rand(rng, (B, 1, H, D), torch.bfloat16)
+    lens = rng.integers(1, S + 1, size=B).tolist()
+    sl = ints(lens)
+    mask = (torch.arange(S, device=DEVICE)[None, :] < sl.long()[:, None])[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def route():
+        return decode_attention_dense(q, k, v, sl)
+
+    def plain():
+        return dense_plain(q, k, v, sl)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    err = attn_close(route()[:, 0], plain()[:, 0], "chat64 dense route")
+    tokens = sum(lens)
+    nbytes = 2 * tokens * KVH * D * 2 + 2 * q.numel() * 2 + 2 * B * 4
+    flops = 4 * tokens * H * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return dict(shape="starcoder2-chat64-dense", H=H, KVH=KVH, D=D, S=S, B=B, tokens=tokens,
+                max_abs_err=err, ms=time_ms(route), call_ms=call_ms(route),
+                plain_ms=time_ms(plain, iters=3), library_ms=time_ms(library, iters=3),
+                bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                fma_ms=flops / F32_FLOPS_PER_S * 1e3)
 
 
 #: attention_shapes: (shape, (H, KVH, D), sequences)
@@ -1689,11 +1841,10 @@ def stitched_vs_dense(k_all: torch.Tensor, v_all: torch.Tensor, n: int, n_heads:
                       what: str):
     """Write each layer's dense K/V ``(L, B, S, KVH, D)`` (the first ``n``
     tokens of every sequence) into a ``StitchedKVCache`` at its geometry and
-    hold stitched decode attention (the kernel) to ``decode_attention_dense``
-    on every layer, row-scaled (``attn_close``). Returns (max abs error,
-    chunk tokens)."""
+    hold stitched decode attention (the kernel) to the plain dense path
+    (``dense_plain``) on every layer, row-scaled (``attn_close``). Returns
+    (max abs error, chunk tokens)."""
     from repro_torch.core.kvcache import KVCacheConfig, StitchedKVCache
-    from repro_torch.models.layers import decode_attention_dense
 
     import dataclasses
 
@@ -1712,7 +1863,7 @@ def stitched_vs_dense(k_all: torch.Tensor, v_all: torch.Tensor, n: int, n_heads:
             kv.write_tokens(rid, layer, "k", 0, k_all[layer, rid, :n])
             kv.write_tokens(rid, layer, "v", 0, v_all[layer, rid, :n])
         got = kv.decode_attention(rids, layer, q)
-        want = decode_attention_dense(q[:, None], k_all[layer], v_all[layer], ints([n] * b))[:, 0]
+        want = dense_plain(q[:, None], k_all[layer], v_all[layer], ints([n] * b))[:, 0]
         err = max(err, attn_close(got, want, (what, layer)))
     return err, kv.config.chunk_tokens
 
@@ -2463,8 +2614,9 @@ def record_traces(card: str) -> dict:
     event for event and in decode steps to its checked-in recording (so a
     failure says where they part), then saved under a temporary directory in
     ``build/`` and held byte for byte to it. The engine decodes on its dense
-    cache and drives the stitched KV cache for accounting only, so the path
-    launches no kernel: the counts, zeroed before, are reported."""
+    cache (through the decode attention kernel) and drives the stitched KV
+    cache for accounting only: the counts, zeroed before, are reported, and
+    the attention kernel's must be above 0."""
     from repro_torch.core.trace import load_trace
     from repro_torch.kernels import ops
 
@@ -2502,7 +2654,8 @@ def record_traces(card: str) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     log(f"phase 12: kernel launches on the recorder's path {counts} (its engine decodes on "
-        f"the dense cache)")
+        f"the dense cache, through the attention kernel)")
+    assert counts["stitched_decode_attention"] > 0, counts
     return dict(card=card, counts=counts, **rows)
 
 
@@ -2527,6 +2680,7 @@ def main() -> int:
     check_copy_kernels(rng)
     check_attention_kernel(rng)
     geometries = check_new_geometries(rng)
+    dense_route = check_dense_route(rng)
 
     ops.reset_launch_counts()
     serve()
@@ -2561,6 +2715,16 @@ def main() -> int:
     parallel(card, trained, moe.pop("host_params"))
     dry = dryrun(card)
     record = record_traces(card)
+    # phase 5's last row, timed after phase 11: the side streams its plain
+    # and library yardsticks warm up keep workspaces that would otherwise
+    # count in 11a's process peak
+    chat = dense_route_times(rng)
+    log(f"phase 5: dense route at the chat shape (B={chat['B']}, {chat['tokens']} tokens, "
+        f"H/KVH/D {chat['H']}/{chat['KVH']}/{chat['D']}, bf16): kernel {chat['ms']:.5f} ms "
+        f"({chat['call_ms']:.5f} ms per call), plain {chat['plain_ms']:.5f} ms, "
+        f"scaled_dot_product_attention {chat['library_ms']:.5f} ms, bound "
+        f"{chat['bound_ms']:.5f} ms ({chat['bound_by']}), "
+        f"{100 * chat['bound_ms'] / chat['ms']:.1f} % of bound")
     for row in rows:  # launches stays the serving path's count, at the timed shapes
         row["launches_by_path"] = {"serve": row["launches"],
                                    "train": trained["counts"][row["name"]],
@@ -2569,7 +2733,8 @@ def main() -> int:
                                    "families": moe["family_counts"][row["name"]],
                                    "new_families": fams["counts"][row["name"]],
                                    "record": record["counts"][row["name"]]}
-    print(json.dumps({"attention_shapes": shapes, "new_geometries": geometries}))
+    print(json.dumps({"attention_shapes": shapes, "new_geometries": geometries,
+                      "dense_route": dense_route, "dense_route_chat": chat}))
     print(json.dumps({"training": {k: v for k, v in trained.items() if k != "counts"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"kill_recover": {k: v for k, v in kr.items() if k != "counts"}}))

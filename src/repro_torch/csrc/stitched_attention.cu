@@ -47,6 +47,12 @@
 //     ticket, so repeated calls and CUDA-graph replays need no reset launch.
 //     The workspace holding tickets and partials belongs to one stream at a
 //     time: calls on concurrent streams must not share it.
+//   * A sliding window (`window` > 0) lets sequence b see positions
+//     [max(0, seq_len - window), seq_len). The walk then starts at the tile
+//     that holds the window's first position and the splits count from
+//     there, so blocks whose tiles lie wholly before the window exit as
+//     blocks past seq_len do; that first tile masks its positions before
+//     the window. With `window` 0 the walk is the one above.
 // The host-side plan (KG, TT, GC, P, tiles_per_split) is made by
 // repro_torch/kernels/stitched_attention.py::attention_plan, whose
 // tile_ranges() mirrors the tile walk below and whose smem_bytes() mirrors
@@ -80,6 +86,7 @@ struct Plan {
     int aligned;  // 16-byte cp.async allowed
     int smem_bytes;
     float scale;
+    int window;  // 0: none; else positions [seq_len - window, seq_len)
 };
 
 struct Args {
@@ -195,10 +202,14 @@ decode_attn(const Args a, const Plan p) {
     const int full = (int)(seq / p.T_c);
     const int rem = (int)(seq - (long long)full * p.T_c);
     const int n_tiles = full * tpc + (rem + TT - 1) / TT;
-    int n_live = (n_tiles + p.tiles_per_split - 1) / p.tiles_per_split;
+    // the window's first position and the tile that holds it
+    const long long lo = p.window > 0 && seq > p.window ? seq - p.window : 0;
+    const int c_lo = (int)(lo / p.T_c);
+    const int j_lo = c_lo * tpc + (int)(lo - (long long)c_lo * p.T_c) / TT;
+    int n_live = (n_tiles - j_lo + p.tiles_per_split - 1) / p.tiles_per_split;
     if (n_live < 1) n_live = 1;  // split 0 of an empty sequence writes zeros
     if (split >= n_live) return;
-    const int j0 = split * p.tiles_per_split;
+    const int j0 = j_lo + split * p.tiles_per_split;
     const int j1 = j0 + p.tiles_per_split < n_tiles ? j0 + p.tiles_per_split : n_tiles;
 
     // shared memory: the ring of kStages (K tile, V tile) stages, which after
@@ -294,7 +305,11 @@ decode_attn(const Args a, const Plan p) {
             live = (live & ~(1u << next)) | (unsigned)load_tile(j + 1, next) << next;
         cp_async_commit();
         if (!(live >> st & 1u)) continue;
-        const int n = tile_at(j, tpc, TT, p.T_c, seq).n;
+        const Tile tl = tile_at(j, tpc, TT, p.T_c, seq);
+        const int n = tl.n;
+        // rows before the window (the first tile only) score -inf
+        const long long first = (long long)tl.c * p.T_c + tl.t0;
+        const int masked = lo > first ? (int)(lo - first) : 0;
         const unsigned char* ks = ring + (size_t)st * 2 * tile_bytes;
         const unsigned char* vs = ks + tile_bytes;
 
@@ -327,7 +342,7 @@ decode_attn(const Args a, const Plan p) {
                 }
             }
 #pragma unroll
-            for (int g = 0; g < GC; ++g) p_s[r * PR + kc * 4 + g] = s[g];
+            for (int g = 0; g < GC; ++g) p_s[r * PR + kc * 4 + g] = r < masked ? kNegInf : s[g];
         }
         __syncthreads();
 
@@ -530,6 +545,7 @@ extern "C" int stitched_decode_attention(const void* plan, const void* q, const 
     const int G = p.H / p.KVH;
     const int units = p.kv_per_block * ((G + p.head_chunk - 1) / p.head_chunk) * (p.D / 4);
     if (p.H % p.KVH || p.KVH % p.kv_per_block || p.D % 8 || p.tile_tokens > kMaxTile ||
+        p.window < 0 ||
         p.threads % 32 || p.threads > kMaxThreads ||
         units * p.phases > p.threads || p.kv_per_block * p.D * (p.dtype ? 2 : 4) > 16 * p.threads)
         return (int)cudaErrorInvalidValue;

@@ -36,6 +36,7 @@ def stitched_decode_attention_ref(
     page_table_v: Optional[torch.Tensor] = None,
     *,
     scale: Optional[float] = None,
+    window: int = 0,  # > 0: only the last ``window`` valid positions
 ) -> torch.Tensor:
     """Gather-then-softmax reference for the stitched decode attention."""
     batch, n_heads, head_dim = q.shape
@@ -50,7 +51,10 @@ def stitched_decode_attention_ref(
     k = k_arena[page_table.long()].reshape(batch, n_chunks * chunk_tokens, n_kv, head_dim)
     v = v_arena[page_table_v.long()].reshape(batch, n_chunks * chunk_tokens, n_kv, head_dim)
     pos = torch.arange(n_chunks * chunk_tokens, device=q.device)[None, :]
-    masked = ~(pos < seq_lens.long()[:, None])[:, None, None, :]  # (B, 1, 1, T)
+    valid = pos < seq_lens.long()[:, None]
+    if window > 0:
+        valid = valid & (pos >= seq_lens.long()[:, None] - window)
+    masked = ~valid[:, None, None, :]  # (B, 1, 1, T)
 
     qg = (q * scale).reshape(batch, n_kv, group, head_dim).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()).masked_fill(masked, NEG_INF)

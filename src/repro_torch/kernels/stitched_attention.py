@@ -17,7 +17,10 @@ constants below were chosen by timing the alternatives on H100 at
 smollm-135m's shapes (PERF.md, Findings). The arena is
 read through a strided view (chunk stride may exceed ``T_c * KVH * D``), so
 the KV cache can hand over the token-structured prefix of every 2 MiB chunk
-without a copy.
+without a copy. A dense cache (B, S, KVH, D) is an arena of B chunks of S
+tokens under the identity page table: ``models/layers.py`` decodes through
+this kernel that way, with a sliding ``window`` where the model has one
+(the stitched KV cache passes none).
 
 The wrapper takes a CUDA tensor to the kernel and a CPU tensor to the
 plain version in ``ref.py``; nothing falls back. ``launches`` counts
@@ -144,17 +147,22 @@ def attention_plan(batch: int, n_heads: int, n_kv: int, head_dim: int, chunk_tok
                          tiles_per_chunk, per_split, splits, threads, smem(tile, splits))
 
 
-def tile_ranges(plan: AttentionPlan, chunk_tokens: int, seq_len: int
+def tile_ranges(plan: AttentionPlan, chunk_tokens: int, seq_len: int, window: int = 0
                 ) -> Iterator[Tuple[int, int, int, int]]:
     """The tiles the kernel reads for one sequence, as (split, chunk, first
-    token in the chunk, token count); the kernel's ``tile_at`` walk."""
+    token in the chunk, token count); the kernel's ``tile_at`` walk. With a
+    ``window`` the walk starts at the tile holding position ``seq_len -
+    window`` and the splits count from there; the kernel masks that tile's
+    positions before the window."""
     tile = plan.tile_tokens
     full, rem = divmod(seq_len, chunk_tokens)
     n_tiles = full * plan.tiles_per_chunk + -(-rem // tile)
-    for j in range(n_tiles):
+    c_lo, r_lo = divmod(max(0, seq_len - window) if window > 0 else 0, chunk_tokens)
+    j_lo = c_lo * plan.tiles_per_chunk + r_lo // tile
+    for j in range(j_lo, n_tiles):
         c, r = divmod(j, plan.tiles_per_chunk)
         t0 = r * tile
-        yield (j // plan.tiles_per_split, c, t0,
+        yield ((j - j_lo) // plan.tiles_per_split, c, t0,
                min(tile, chunk_tokens - t0, seq_len - c * chunk_tokens - t0))
 
 
@@ -166,7 +174,7 @@ class _Plan(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("kv_per_block", "tile_tokens", "head_chunk", "phases",
                                        "tiles_per_split", "splits", "threads", "aligned",
                                        "smem_bytes")]
-        + [("scale", ctypes.c_float)]
+        + [("scale", ctypes.c_float), ("window", ctypes.c_int)]
     )
 
 
@@ -183,12 +191,12 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=256)
 def _launch_plan(dtype: torch.dtype, batch: int, n_heads: int, n_kv: int, head_dim: int,
                  chunk_tokens: int, n_chunks: int, n_phys: int, chunk_stride: int,
-                 aligned: bool, scale: float) -> Tuple[AttentionPlan, _Plan]:
+                 aligned: bool, scale: float, window: int) -> Tuple[AttentionPlan, _Plan]:
     plan = attention_plan(batch, n_heads, n_kv, head_dim, chunk_tokens, n_chunks,
                           dtype.itemsize)
     c_plan = _Plan(_DTYPE_CODE[dtype], batch, n_heads, n_kv, head_dim, chunk_tokens, n_chunks,
                    n_phys, chunk_stride, plan.kv_per_block, plan.tile_tokens, plan.head_chunk, plan.phases, plan.tiles_per_split, plan.splits,
-                   plan.threads, int(aligned), plan.smem_bytes, scale)
+                   plan.threads, int(aligned), plan.smem_bytes, scale, window)
     return plan, c_plan
 
 
@@ -241,17 +249,21 @@ def stitched_decode_attention(
     *,
     page_table_v: Optional[torch.Tensor] = None,  # defaults to sharing page_table
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Decode attention over the stitched KV arena. Returns (B, H, D) in q's dtype.
 
     K and V may live in the same arena buffer under different page tables
     (pass the buffer twice + ``page_table_v``), or in separate buffers under
-    one shared table. Positions ``>= seq_lens[b]`` are masked; a sequence of
+    one shared table. Positions ``>= seq_lens[b]`` are masked, and with a
+    ``window`` > 0 positions ``< seq_lens[b] - window`` too; a sequence of
     length 0 gives zeros. On the card D must be a multiple of 8.
     """
+    if window < 0:
+        raise ValueError(f"window must be 0 (none) or positive, got {window}")
     if q.device.type == "cpu":
         return stitched_decode_attention_ref(
-            q, k_arena, v_arena, page_table, seq_lens, page_table_v, scale=scale
+            q, k_arena, v_arena, page_table, seq_lens, page_table_v, scale=scale, window=window
         )
     if q.device.type != "cuda":
         raise ValueError(f"stitched attention takes CPU or CUDA tensors, got {q.device}")
@@ -282,7 +294,7 @@ def stitched_decode_attention(
                and chunk_stride * q.element_size() % 16 == 0)
     plan, c_plan = _launch_plan(
         q.dtype, batch, n_heads, n_kv, head_dim, chunk_tokens, n_chunks, n_phys, chunk_stride,
-        aligned, (head_dim**-0.5) if scale is None else float(scale))
+        aligned, (head_dim**-0.5) if scale is None else float(scale), int(window))
     n_groups = n_kv // plan.kv_per_block
     tickets, partials = _scratch(
         q.device, batch * n_groups,

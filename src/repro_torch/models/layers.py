@@ -10,6 +10,7 @@ float32.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -456,6 +457,32 @@ def write_token(cache, pos, new) -> None:
     local[rows, pos_l] = torch.where(inside[:, None, None], new_l, local[rows, pos_l])
 
 
+@functools.lru_cache(maxsize=64)
+def _identity_table(batch: int, device: torch.device) -> torch.Tensor:
+    """The page table of a dense cache read as an arena: chunk b is sequence b."""
+    return torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+
+
+def _decode_attention_kernel(q, k_cache, v_cache, lengths, *, window=None, scale=None):
+    """``decode_attention_dense`` through the port's flash-decoding kernel:
+    one layer's cache (B, S, KVH, D) read as an arena of B chunks of S
+    tokens under the identity page table, so each sequence's valid tokens
+    are read once, in the cache's dtype, with no head expansion or copy.
+    Softmax statistics, probabilities and sums stay in float32 (the plain
+    path rounds the probabilities to q's dtype before P.V). A CPU tensor
+    takes the kernel wrapper's plain version."""
+    from ..kernels.stitched_attention import stitched_decode_attention
+
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or positive, got {window}")
+    b, _, h, d = q.shape
+    count("attn.decode_kernel")
+    out = stitched_decode_attention(
+        q.reshape(b, h, d).contiguous(), k_cache, v_cache, _identity_table(b, q.device),
+        lengths.to(torch.int32), scale=scale, window=window or 0)
+    return out[:, None]
+
+
 def decode_attention_dense(
     q: torch.Tensor,  # (B, 1, H, D)
     k_cache: torch.Tensor,  # (B, S, KVH, D)
@@ -465,7 +492,11 @@ def decode_attention_dense(
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Single-token decode over a dense KV cache (serve_step path)."""
+    """Single-token decode over a dense KV cache (serve_step path). On the
+    card it runs the flash-decoding kernel (``_decode_attention_kernel``);
+    CPU tensors and DTensors take the plain code below."""
+    if q.is_cuda and not any(isinstance(t, DTensor) for t in (q, k_cache, v_cache)):
+        return _decode_attention_kernel(q, k_cache, v_cache, lengths, window=window, scale=scale)
     b, _, h, d = q.shape
     s = k_cache.shape[1]
     scale = (d**-0.5) if scale is None else scale

@@ -10,8 +10,9 @@ As in the reference, the model runs on a dense per-slot KV cache, and every
 admission, growth and retirement drives the GMLake-backed
 ``StitchedKVCache`` for allocation accounting, token for token. The
 stitched data path (``StitchedKVCache.write_tokens`` / ``decode_attention``,
-which reach the CUDA kernels) is held against this dense path by
-``chip_smoke.py``.
+which reach the CUDA kernels) is held against the plain dense path by
+``chip_smoke.py``. On the card the dense cache is read by the same decode
+attention kernel, one chunk a slot (``models/layers.py``).
 
 Its steps, admissions, prefills, decodes and samplings are spans
 (``serve.*``) with counters of the work, while tracing is on

@@ -125,3 +125,43 @@ def test_small_splits_cover_each_valid_position_once(case):
                 seen[c * Tc + t0: c * Tc + t0 + n] += 1
             assert (seen[:seq_len] == 1).all() and not seen[seq_len:].any(), seq_len
             assert len({w[0] for w in walk}) == -(-len(walk) // per_split)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + [(3, 9, 3, 64, 37, 4), (64, 48, 4, 128, 1536, 1)])
+@pytest.mark.parametrize("window", [1, 5, 32, 100, 4096])
+def test_window_skips_the_tiles_before_it(case, window):
+    """With a window the walk starts at the tile holding position ``len -
+    window``: every tile wholly before it is skipped, the tiles from it on
+    are read once each, the split indices count from it as a prefix of at
+    most ``splits`` (one to three tiles a split, and the plan's own), and
+    only the first tile reads positions before the window, fewer than a
+    tile's worth (the kernel masks them)."""
+    B, H, KVH, D, Tc, C = case
+    base = attention_plan(B, H, KVH, D, Tc, C, 2)
+    capacity = C * base.tiles_per_chunk
+    plans = [base] + [dataclasses.replace(base, tiles_per_split=n, splits=-(-capacity // n))
+                      for n in (1, 2, 3)]
+    for plan in plans:
+        for seq_len in _lengths(plan.tile_tokens, Tc, C) + [window, window + 1]:
+            if not 0 <= seq_len <= Tc * C:
+                continue
+            lo = max(0, seq_len - window)
+            full = list(tile_ranges(plan, Tc, seq_len))
+            walk = list(tile_ranges(plan, Tc, seq_len, window))
+            # the windowed walk is the tail of the whole walk from the tile
+            # holding lo, with split indices counted from there
+            kept = [t for t in full if t[1] * Tc + t[2] + t[3] > lo]
+            assert [t[1:] for t in walk] == [t[1:] for t in kept], (seq_len, window)
+            assert [s for s, *_ in walk] == [j // plan.tiles_per_split
+                                             for j in range(len(walk))]
+            assert all(s < plan.splits for s, *_ in walk)
+            seen = np.zeros(Tc * C, np.int64)
+            for _, c, t0, n in walk:
+                seen[c * Tc + t0: c * Tc + t0 + n] += 1
+            assert (seen[lo:seq_len] == 1).all() and not seen[seq_len:].any()
+            if walk:
+                first = walk[0][1] * Tc + walk[0][2]
+                assert first <= lo < first + walk[0][3]
+                assert not seen[:first].any() and lo - first < plan.tile_tokens
+            else:
+                assert seq_len == 0
