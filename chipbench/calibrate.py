@@ -97,13 +97,15 @@ def main(argv=None, root: Path = HERE.parent, device: str = "cuda") -> dict:
                 control = ("fp8",) if seed in args.control else ()
                 gaps = closed_loop.reference_gaps(ctx, served.shapes, served.picked,
                                                   ("float32",) + control)
-                o = closed_loop.judged(ctx, served, gaps["float32"])
+                o = closed_loop.judged(ctx, served, gaps)
                 rec = o.record
                 readings = {n: v for n, v, _ in o.checks}
                 extra = {"attempted": o.attempted, "sampled_tokens": rec["sampled_tokens"],
                          "output_tokens_per_s": rec["output_tokens"] / rec["window_s"],
                          "tpot_p95_ms": float(np.percentile(rec["tpot_s"], 95)) * 1e3,
                          "setup_s": rec["setup_s"]}
+                if "undecided_share" in gaps:
+                    extra["undecided_share"] = gaps["undecided_share"]
                 if seed in args.seeds:
                     emit("program", seed, readings, **extra)
                 if seed in args.control:
@@ -119,7 +121,7 @@ def main(argv=None, root: Path = HERE.parent, device: str = "cuda") -> dict:
     for role, lines in out.items():
         for line in lines:
             for k, v in line.items():
-                if isinstance(v, float) and k.endswith(("_gap", "_err", "_errors")):
+                if isinstance(v, float) and k.endswith(("_gap", "_err", "_errors", "_share")):
                     lo, hi = summary.setdefault(role, {}).setdefault(k, [v, v])
                     summary[role][k] = [min(lo, v), max(hi, v)]
     print(json.dumps({"summary": summary, "seconds": time.perf_counter() - T_START}))

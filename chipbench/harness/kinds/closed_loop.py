@@ -18,7 +18,8 @@ it.
 After the window the engine is freed and the reference runs once over a
 sample of the requests that finished in it, drawn from the seed with the
 longest among them, and reads how far each served token's logit lies
-below its best.
+below its best. It reads the weights in float32 one layer at a time, and
+may set aside positions it cannot decide (``reference_gaps``).
 """
 
 from __future__ import annotations
@@ -124,43 +125,63 @@ def sample(ctx: Context, reqs: List) -> List:
     return picked
 
 
+def _split(out):
+    """A reference's ``logits`` output as (logits, undecided or None)."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
 def reference_gaps(ctx: Context, shapes, picked, precisions=("float32",)) -> Dict[str, float]:
     """The widest logit gap over the sample: for ``float32`` the served
     tokens' gap below the reference's best; for a lower precision (the
-    control), the gap of the token that precision puts first."""
+    control), the gap of the token that precision puts first.
+
+    The reference reads the weights through ``weights.OnDemand``: each
+    layer's slice in float32 when it reads it, never the whole tree. A
+    reference whose ``logits`` returns ``(logits, undecided)``, one bool a
+    position, sets those positions aside (by its float32 pass) from every
+    gap, and ``undecided_share`` is then the share of the sample's served
+    positions set aside. A gap over no position is NaN."""
     from reference.common import Precision, exact_float32
 
     ref = model.reference(ctx.cell.config)
     m = ctx.cell.config["model"]
-    w = weights.draw(shapes, ctx.seed, ctx.device)
-    w32 = {}
-
-    def f32(tree, out):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = f32(v, {})
-            else:
-                out[k] = v.float()
-        return out
-
-    f32(w, w32)
-    del w
+    w32 = weights.OnDemand(weights.draw(shapes, ctx.seed, ctx.device, m["n_layers"]),
+                           m["n_layers"])
     widest = {p: 0.0 for p in precisions}
+    positions = set_aside = 0
+    masked = False
     with exact_float32():
         for r in picked:
             p = len(r.prompt)
             toks = np.concatenate([r.prompt, np.asarray(r.generated[:-1], np.int32)])
             toks = torch.as_tensor(toks, device=ctx.device)
             served = torch.as_tensor(r.generated, device=ctx.device).long()
-            best = ref.logits(m, w32, toks, Precision("float32"))[p - 1:]
+            best, undecided = _split(ref.logits(m, w32, toks, Precision("float32")))
+            best = best[p - 1:]
             top = best.max(-1).values
+            keep = None
+            positions += len(served)
+            if undecided is not None:
+                if tuple(undecided.shape) != tuple(toks.shape):
+                    raise ValueError(f"undecided has shape {tuple(undecided.shape)}, the "
+                                     f"sequence {tuple(toks.shape)}")
+                masked = True
+                keep = ~undecided[p - 1:].bool()
+                set_aside += len(served) - int(keep.sum())
+                if not keep.any():
+                    continue
             for prec in precisions:
                 if prec == "float32":
                     chosen = served
                 else:
-                    chosen = ref.logits(m, w32, toks, Precision(prec))[p - 1:].argmax(-1)
-                gap = (top - best.gather(1, chosen[:, None])[:, 0]).max()
+                    chosen = _split(ref.logits(m, w32, toks, Precision(prec)))[0][p - 1:].argmax(-1)
+                gap = top - best.gather(1, chosen[:, None])[:, 0]
+                gap = (gap if keep is None else gap[keep]).max()
                 widest[prec] = max(widest[prec], float(gap))
+    if set_aside == positions:
+        widest = {prec: float("nan") for prec in precisions}
+    if masked:
+        widest["undecided_share"] = set_aside / positions
     return widest
 
 
@@ -183,7 +204,7 @@ def serve(ctx: Context) -> Served:
     mix, m = ctx.cell.traffic, ctx.cell.config["model"]
     cfg = model.port_config(ctx.cell.config)
     shapes = model.param_shapes(cfg)
-    params = weights.draw(shapes, ctx.seed, ctx.device)
+    params = weights.draw(shapes, ctx.seed, ctx.device, m["n_layers"])
     eng = _engine(ctx, cfg, params)
     loop = ClosedLoop(eng, traffic.requests(mix, m["vocab"], ctx.seed), mix["clients"])
     for _ in range(mix["warmup_steps"]):
@@ -242,10 +263,19 @@ def serve(ctx: Context) -> Served:
                   length_errors=length_errors, profile=profile)
 
 
-def judged(ctx: Context, served: Served, logit_gap: float) -> Outcome:
-    readings = {"length_errors": float(served.length_errors), "logit_gap": logit_gap}
+def judged(ctx: Context, served: Served, gaps: Dict[str, float]) -> Outcome:
+    """The outcome held to the cell's limits: ``logit_gap`` is the float32
+    gap, and ``undecided_share`` is read only where the reference returned
+    a mask. A cell that gives that share no limit holds it to 0, so a mask
+    never sets a position aside unbounded."""
+    readings = {"length_errors": float(served.length_errors),
+                "logit_gap": gaps.get("float32", float("nan"))}
+    limits = ctx.cell.limits["limits"]
+    if "undecided_share" in gaps:
+        readings["undecided_share"] = gaps["undecided_share"]
+        limits = {**limits, "undecided_share": limits.get("undecided_share", 0.0)}
     return Outcome(record=served.record,
-                   checks=compare.checks(readings, ctx.cell.limits["limits"]),
+                   checks=compare.checks(readings, limits),
                    attempted=served.attempted, failed=served.length_errors,
                    profile=served.profile)
 
@@ -253,4 +283,4 @@ def judged(ctx: Context, served: Served, logit_gap: float) -> Outcome:
 def run(ctx: Context) -> Outcome:
     served = serve(ctx)
     gaps = reference_gaps(ctx, served.shapes, served.picked) if served.picked else {}
-    return judged(ctx, served, gaps.get("float32", float("nan")))
+    return judged(ctx, served, gaps)

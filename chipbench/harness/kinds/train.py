@@ -45,7 +45,7 @@ def build(ctx: Context):
 
     cfg = model.port_config(ctx.cell.config)
     shapes = model.param_shapes(cfg)
-    params = weights.draw(shapes, ctx.seed, ctx.device)
+    params = weights.draw(shapes, ctx.seed, ctx.device, ctx.cell.config["model"]["n_layers"])
     adamw = opt.AdamWConfig(**optimizer(ctx))
     state = TrainState(params=params, opt=opt.init(adamw, params),
                        step=torch.zeros((), dtype=torch.int32, device=ctx.device))
@@ -97,7 +97,7 @@ def reference_readings(ctx: Context, shapes, batches, precision: str) -> Dict:
     from reference.common import Precision
     from reference.train import run as ref_run
 
-    w = weights.draw(shapes, ctx.seed, ctx.device)
+    w = weights.draw(shapes, ctx.seed, ctx.device, ctx.cell.config["model"]["n_layers"])
     index = {n: weights.sample_index(n, t.numel(), ctx.seed) for n, t in weights.leaves(w)}
     return ref_run(model.reference(ctx.cell.config), ctx.cell.config["model"], w,
                    batches[:PROGRAM_STEPS], optimizer(ctx), Precision(precision), index)

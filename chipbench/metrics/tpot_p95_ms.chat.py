@@ -1,6 +1,7 @@
 """95th percentile (linear interpolation) over every request that finished
 in the window of (finish - first token) / (output tokens - 1), in ms on
-the host clock."""
+the host clock. A per-layer metric: the engine's step is paced by the
+host, and its runs spread too widely for an end-to-end bound (PERF.md)."""
 
 import numpy as np
 
